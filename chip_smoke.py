@@ -4,16 +4,24 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero:
-  1. build the four kernels from cosnarks_tpu_torch/csrc (nvcc, sm_90a);
-  2. hold every kernel against its plain PyTorch version at main-path
-     shapes (exact limb equality), timed beside its bound, and show that a
-     wrapper raises on a bad CUDA input instead of falling back;
+  1. build the six kernels from cosnarks_tpu_torch/csrc (nvcc, sm_90a);
+  2. hold every kernel mode against its plain PyTorch version at main-path
+     shapes (exact limb equality), timed on the device beside its bound
+     (the plain version with its host launch overhead), call K5 through its
+     entry point curve.madd (a broadcast affine Q, a bool mask), and show
+     that a wrapper raises on a bad CUDA input instead of falling back;
   3. the main path: a domain-2^16 synthetic zkey, then the 3-party Rep3
      Groth16 prover over run_parties, twice; every party returns the same
      proof, it verifies, and every kernel launched during the warm prove;
+  3b. the 3-party Shamir (n = 3, t = 1) Groth16 prover on the same zkey,
+     once (warm card and caches): the same checks, with its own counts;
   4. a 2^20-point G1 MSM at c = 15 over points [k_i]G made on the card,
      checked against the host's [sum s_i k_i]G;
-  5. the kernel table; then the card's name and power limit; then
+  4b. the same MSM through the other split, _host_horner(_pippenger_wsums):
+     K4 and the K6 weighted bucket reduction on the card, Horner on the host;
+     then ten pairs of it and msm(), taking turns at going first;
+  5. the kernel table (every mode of K1-K6, each with its launches and the
+     phase that counted them); then the card's name and power limit; then
   6. {"ok": true, "device": {...}} as the last line.
 Imports nothing of JAX or the JAX package; needs one CUDA card.
 """
@@ -64,7 +72,7 @@ def main() -> int:
     from cosnarks_tpu_torch.ff.spec import BN254_FQ
     from cosnarks_tpu_torch.groth16 import drivers, prove, setup
     from cosnarks_tpu_torch.groth16.verify import verify_bn254
-    from cosnarks_tpu_torch.mpc import rep3
+    from cosnarks_tpu_torch.mpc import rep3, shamir
     from cosnarks_tpu_torch.mpc.net.local import run_parties
 
     dev = torch.device("cuda")
@@ -89,11 +97,16 @@ def main() -> int:
         x[..., 15] &= 0x1FFF  # < 2^253 < p: canonical
         return x
 
-    def timed(fn, iters):
+    def timed(fn, iters, queue_ahead=False):
+        """Mean ms per call between CUDA events. With queue_ahead, the calls
+        are queued behind a 50 ms device sleep, so the events time the
+        device's back-to-back runs and not the host's launch overhead."""
         fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queue_ahead:
+            torch.cuda._sleep(int(0.05 * sm_clock_hz))
         start.record()
         for _ in range(iters):
             out = fn()
@@ -121,8 +134,8 @@ def main() -> int:
     rows = {}
 
     def check(name, kernel_fn, plain_fn, nbytes, nfield_muls, iters,
-              replaces, source):
-        out, ms = timed(kernel_fn, iters)
+              replaces, source, **extra):
+        out, ms = timed(kernel_fn, iters, queue_ahead=True)
         ref, plain_ms = timed(plain_fn, 1)
         err = max_err(out, ref)
         bms, by = bound(nbytes, nfield_muls * MULS_PER_FIELD_MUL)
@@ -131,7 +144,7 @@ def main() -> int:
                "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                "library_ms": None}
         rows[name] = row
-        emit({"phase": "kernel_check", **row})
+        emit({"phase": "kernel_check", **row, **extra})
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from plain version")
 
@@ -242,6 +255,82 @@ def main() -> int:
           "cosnarks_tpu/ec/pallas_ec.py:340 (_level0_call, proj_q=True)",
           "cosnarks_tpu_torch/csrc/msm_fold.cu")
 
+    # K5 at 2^14 points: Jacobian P with P = Q (X1 = x2 Z1^2, Y1 = y2 Z1^3)
+    # on lanes 1 mod 8, P = -Q on lanes 2 mod 8, P = inf on lanes 3 mod 8;
+    # the masked mode drops lanes 0 mod 4
+    Zsq = mont.mul(F, P[2], P[2])
+    Zcu = mont.mul(F, Zsq, P[2])
+    Xs, Ys = mont.mul(F, Q[0], Zsq), mont.mul(F, Q[1], Zcu)
+    PJ = [torch.where((lane % 8 == 1)[:, None] | (lane % 8 == 2)[:, None],
+                      Xs, P[0]),
+          torch.where((lane % 8 == 1)[:, None], Ys,
+                      torch.where((lane % 8 == 2)[:, None],
+                                  mont.neg(F, Ys), P[1])),
+          P[2]]
+    PJ = [x.contiguous() for x in PJ]
+    QA = [Q[0].contiguous(), Q[1].contiguous()]
+    p_fin = (PJ[2] != 0).any(-1)
+    for masked in (False, True):
+        vm = valid if masked else None
+        live = p_fin & (valid != 0) if masked else p_fin
+        check("K5 jacobian madd" + (" (masked)" if masked else ""),
+              lambda vm=vm: ek.madd_launch(g1, PJ + QA, vm),
+              lambda vm=vm: ek.madd_plain(
+                  g1, tuple(PJ), tuple(QA), None if vm is None else vm != 0),
+              8 * n2 * LIMB_BYTES + (n2 * 8 if masked else 0),
+              11 * int(live.sum()), 20,
+              "cosnarks_tpu/ec/pallas_ec.py:157 (_madd_call"
+              + (", masked)" if masked else ")"),
+              "cosnarks_tpu_torch/csrc/jacobian_madd.cu")
+
+    # K5's entry point, curve.madd: one affine Q broadcast over the batch,
+    # unmasked and with a bool mask, launches K5 and equals the plain version
+    q_one = tuple(x[5:6] for x in QA)
+    q_wide = tuple(x.expand_as(PJ[0]).contiguous() for x in q_one)
+    before = sum(ek.madd_launch.launches.values())
+    for vm in (None, valid != 0):
+        err = max_err(ec.madd(g1, tuple(PJ), q_one, vm),
+                      ek.madd_plain(g1, tuple(PJ), q_wide, vm))
+        if err != 0:
+            raise AssertionError("curve.madd differs from the plain version")
+    launched = sum(ek.madd_launch.launches.values()) - before
+    if launched != 2:
+        raise AssertionError(f"curve.madd launched K5 {launched} times, not 2")
+    emit({"phase": "curve_madd", "points": n2, "q": "one, broadcast",
+          "masks": [None, "bool"], "k5_launches": launched,
+          "max_abs_err": 0})
+
+    # K6 at the 2^16 / c = 13 (20 windows x 4096 buckets) and the
+    # 2^20 / c = 15 (17 x 16384) shapes: random projective buckets with
+    # identity (0 : 1 : 0) lanes on j = 5 mod 16
+    one = mont.broadcast_one(F, (), device=dev)
+    for nwin, W, shape in ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15")):
+        bk = [rand_fe(nwin, W) for _ in range(3)]
+        ident = (torch.arange(W, device=dev) % 16 == 5)[None, :, None]
+        bk = [torch.where(ident, torch.zeros_like(bk[0]), bk[0]),
+              torch.where(ident, one.expand_as(bk[1]), bk[1]),
+              torch.where(ident, torch.zeros_like(bk[2]), bk[2])]
+        bk = [x.contiguous() for x in bk]
+        # the bound counts the adds the sum needs: running sums (suffix sums
+        # of S, then their sum), 2(W - 1) per window; the kernel's ladders
+        # do more, the identity adds past each row's end included
+        H = W // 8
+        lg = H.bit_length() - 1
+        adds = 2 * (W - 1)
+        ladder_adds = 7 * H + 2 * H * lg + W * lg + 2 * 3 * 8 + 1
+        check(f"K6 wreduce {shape}",
+              lambda bk=bk: ek.wreduce_launch(g1, bk),
+              lambda bk=bk: ek.wreduce_plain(g1, tuple(bk)),
+              (3 * nwin * W + 3 * nwin) * LIMB_BYTES, nwin * 12 * adds, 5,
+              "cosnarks_tpu/ec/pallas_ec.py:192 (_wreduce_call)",
+              "cosnarks_tpu_torch/csrc/wreduce.cu", shape=[nwin, W],
+              counted={"rcb_adds_per_window": adds,
+                       "field_muls": nwin * 12 * adds},
+              work_done={"ladder_rcb_adds_per_window": ladder_adds,
+                         "ladder_doublings_per_window": lg})
+        del bk
+    del Zsq, Zcu, Xs, Ys, PJ, QA
+
     # a CUDA tensor never reaches a plain version: bad inputs raise
     refused = []
     for bad in (a[:8].to(torch.int32), a[:16, ::2], a[:8, :8]):
@@ -254,6 +343,45 @@ def main() -> int:
     emit({"phase": "wrapper_refuses_bad_input", "raised": refused})
     del a, b, P, Q, PP, qx0, qy0, pk0, q1
     torch.cuda.empty_cache()
+    counters = (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
+                ek.fold_launch, ek.madd_launch, ek.wreduce_launch)
+
+    def clear_counts():
+        for c in counters:
+            c.launches.clear()
+
+    def read_counts():
+        return {c.__qualname__: dict(c.launches) for c in counters}
+
+    # every kernel mode, the wrapper and mode that count it, and the phase
+    # whose run gives its launches
+    modes = {
+        "K1 mont_mul": (mont_kernel.mul, 0, "rep3_groth16"),
+        "K2 jacobian add": (ek.jacobian_launch, ek.JAC_ADD, "rep3_groth16"),
+        "K2 jacobian double": (ek.jacobian_launch, ek.JAC_DOUBLE,
+                               "rep3_groth16"),
+        "K3 proj add": (ek.proj_launch, ek.PROJ_ADD, "rep3_groth16"),
+        "K3 proj madd (masked)": (ek.proj_launch, ek.PROJ_MADD_MASKED,
+                                  None),
+        "K3 proj double": (ek.proj_launch, ek.PROJ_DOUBLE, "rep3_groth16"),
+        "K4 fold level 0": (ek.fold_launch, 0, "rep3_groth16"),
+        "K4 fold projective": (ek.fold_launch, 1, "rep3_groth16"),
+        "K5 jacobian madd": (ek.madd_launch, ek.MADD, None),
+        "K5 jacobian madd (masked)": (ek.madd_launch, ek.MADD_MASKED, None),
+        "K6 wreduce 2^16/c=13": (ek.wreduce_launch, 4096, None),
+        "K6 wreduce 2^20/c=15": (ek.wreduce_launch, 16384, "msm_wsums_2^20"),
+    }
+    counts_by_phase = {}
+
+    def require_launched(phase, names):
+        """Fail unless every mode in `names` launched in `phase`'s run."""
+        got = counts_by_phase[phase]
+        missing = [n for n in names
+                   if got[modes[n][0].__qualname__].get(modes[n][1], 0) == 0]
+        if missing:
+            raise AssertionError(f"{phase}: {missing} did not launch: {got}")
+
+    prover_modes = [n for n, m in modes.items() if m[2] == "rep3_groth16"]
 
     # ---- phase 3: the main path ------------------------------------------
     logn = 16
@@ -264,15 +392,16 @@ def main() -> int:
     vk = prove.vk_from_zkey(zkey)
     shares = rep3.share_field_elements(zkey.fr, w[n_inst:],
                                        random.Random(0xF1A6), device=dev)
-    counters = (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
-                ek.fold_launch)
 
-    def run_prove():
+    def rep3_party(net):
+        state = rep3.Rep3State.setup(net, bytes([net.id + 1]) * 32)
+        return drivers.Rep3Driver(net, state), shares[net.id]
+
+    def run_prove(make_driver):
         def party(net):
-            state = rep3.Rep3State.setup(net, bytes([net.id + 1]) * 32)
-            drv = drivers.Rep3Driver(net, state)
+            drv, share = make_driver(net)
             wit = prove.SharedWitness(public_inputs=w[:n_inst],
-                                      witness=shares[net.id])
+                                      witness=share)
             timings = {}
             proof = prove.prove(drv, zkey, wit, timings=timings)
             return proof, timings
@@ -287,33 +416,39 @@ def main() -> int:
             raise AssertionError("proof does not verify")
         return res, time.perf_counter() - t0
 
-    res, t_first = run_prove()
-    for c in counters:
-        c.launches.clear()
-    res, t_warm = run_prove()
-    by_op = {c.__qualname__: dict(c.launches) for c in counters}
-    launches = {name: sum(ops.values()) for name, ops in by_op.items()}
-    # main-path modes of each kernel; K3's masked mixed add is held against
-    # its plain version above, but only G2 (torch ops) calls proj_madd here
-    path_modes = (
-        ("K1 mont_mul", mont_kernel.mul, 0),
-        ("K2 jacobian add", ek.jacobian_launch, ek.JAC_ADD),
-        ("K2 jacobian double", ek.jacobian_launch, ek.JAC_DOUBLE),
-        ("K3 proj add", ek.proj_launch, ek.PROJ_ADD),
-        ("K3 proj double", ek.proj_launch, ek.PROJ_DOUBLE),
-        ("K4 fold level 0", ek.fold_launch, 0),
-        ("K4 fold projective", ek.fold_launch, 1))
-    for name, fn, op in path_modes:
-        rows[name]["launches"] = by_op[fn.__qualname__].get(op, 0)
-    if min(rows[name]["launches"] for name, _, _ in path_modes) == 0:
-        raise AssertionError(f"a kernel did not launch: {by_op}")
+    res, t_first = run_prove(rep3_party)
+    clear_counts()
+    res, t_warm = run_prove(rep3_party)
+    counts_by_phase["rep3_groth16"] = by_op = read_counts()
+    require_launched("rep3_groth16", prover_modes)
     emit({"phase": "rep3_groth16", "domain": zkey.domain_size,
           "zkey_seconds": t_zkey, "first_prove_s": t_first,
           "warm_prove_s": t_warm,
           "verified": True,
           "phase_seconds_by_party": [r[1] for r in res],
-          "launches": launches, "launches_by_mode": by_op})
-    del zkey, shares, res
+          "launches": {k: sum(v.values()) for k, v in by_op.items()},
+          "launches_by_mode": by_op})
+    del shares, res
+
+    # ---- phase 3b: 3-party Shamir (n = 3, t = 1) on the same zkey --------
+    sh_shares = shamir.share_values(zkey.fr, w[n_inst:], 3, 1,
+                                    random.Random(0x5A17), device=dev)
+
+    def shamir_party(net):
+        state = shamir.ShamirState.setup(net, zkey.fr, 1, pairs=32,
+                                         seed=bytes([net.id + 0x51]) * 32)
+        return drivers.ShamirDriver(net, state), sh_shares[net.id]
+
+    clear_counts()
+    res, t_shamir = run_prove(shamir_party)
+    counts_by_phase["shamir_groth16"] = by_op = read_counts()
+    require_launched("shamir_groth16", prover_modes)
+    emit({"phase": "shamir_groth16", "domain": zkey.domain_size,
+          "n": 3, "t": 1, "prove_s": t_shamir, "verified": True,
+          "phase_seconds_by_party": [r[1] for r in res],
+          "launches": {k: sum(v.values()) for k, v in by_op.items()},
+          "launches_by_mode": by_op})
+    del zkey, sh_shares, res
     torch.cuda.empty_cache()
 
     # ---- phase 4: bench.py's shape: 2^20-point G1 MSM at c = 15 ----------
@@ -339,14 +474,25 @@ def main() -> int:
     pts = ec.to_affine(g1, ec.scalar_mul(g1, G, kt))
     torch.cuda.synchronize()
     t_points = time.perf_counter() - t0
-    msm.msm(g1, pts, st, c=15)  # warm
-    torch.cuda.synchronize()
+
+    def wall(fn):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    def run_msm():
+        return msm.msm(g1, pts, st, c=15)
+
+    def run_wsums():
+        return msm._host_horner(g1, msm._pippenger_wsums(g1, pts, st, 15),
+                                15)
+
+    wall(run_msm)  # warm
     times = []
     for _ in range(3):
-        t0 = time.perf_counter()
-        out = msm.msm(g1, pts, st, c=15)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        out, t = wall(run_msm)
+        times.append(t)
     hc = host.host_curve(g1)
     expect = hc.affine_ints(hc.mul(hc.generator,
                                    sum(s * k for s, k in zip(ss, ks)) % r))
@@ -357,8 +503,32 @@ def main() -> int:
           "msm_s": times, "points_per_s": nm / min(times),
           "matches_host": True})
 
+    # ---- phase 4b: the same MSM, window sums on the card (K4, K6), Horner
+    # on the host; one counted call, then ten pairs against msm() in turns
+    # (host speed moves both by tens of percent between calls) ------------
+    clear_counts()
+    wout, _ = wall(run_wsums)
+    counts_by_phase["msm_wsums_2^20"] = by_op = read_counts()
+    require_launched("msm_wsums_2^20", ["K4 fold level 0",
+                                        "K6 wreduce 2^20/c=15"])
+    if ec.decode_points(g1, tuple(x[None] for x in wout))[0] != expect:
+        raise AssertionError("2^20 wsums + host Horner differs from the host")
+    wtimes, mtimes = [], []
+    for i in range(10):
+        for fn in ((run_wsums, run_msm) if i % 2 else (run_msm, run_wsums)):
+            (wtimes if fn is run_wsums else mtimes).append(wall(fn)[1])
+    emit({"phase": "msm_wsums_2^20", "c": 15, "wsums_horner_s": wtimes,
+          "msm_s": mtimes,
+          "pairs_won_by_wsums": sum(w < m for w, m in zip(wtimes, mtimes)),
+          "points_per_s": nm / min(wtimes), "matches_host": True,
+          "launches_by_mode": by_op})
+
     # ---- phase 5: kernel table, card, result -----------------------------
-    emit({"kernels": [row for row in rows.values() if "launches" in row]})
+    for name, (fn, mode, phase) in modes.items():
+        got = counts_by_phase[phase or "rep3_groth16"]
+        rows[name]["launches"] = got[fn.__qualname__].get(mode, 0)
+        rows[name]["reached_by"] = phase or "kernel_check"
+    emit({"kernels": list(rows.values())})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -25,7 +25,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
-KERNELS = ("mont_mul", "jacobian", "proj_op", "msm_fold")
+KERNELS = ("mont_mul", "jacobian", "proj_op", "msm_fold", "jacobian_madd",
+           "wreduce")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--resource-usage"]
 
@@ -42,6 +43,10 @@ SIGNATURES = {
                 [_INT] + [_P] * 10 + [_I64, _INT, _PARAMS, _P]),
     "msm_fold": ("cosnarks_msm_fold",
                  [_INT] + [_P] * 13 + [_I64, _I64, _INT, _PARAMS, _P]),
+    "jacobian_madd": ("cosnarks_jacobian_madd",
+                      [_INT] + [_P] * 9 + [_I64, _PARAMS, _P]),
+    "wreduce": ("cosnarks_wreduce",
+                [_P] * 7 + [_I64, _I64, _INT, _PARAMS, _P]),
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,8 @@
 // Curve formulas (short Weierstrass, a = 0) over field.cuh, shared by the
 // point kernels. They follow cosnarks_tpu/ec/curve.py step for step:
-// Jacobian dbl-2009-l and complete add-2007-bl with its selects, and the
-// Renes-Costello-Batina complete projective add / mixed add / double.
+// Jacobian dbl-2009-l, complete add-2007-bl and mixed add madd-2007-bl with
+// their selects, and the Renes-Costello-Batina complete projective add /
+// mixed add / double.
 #pragma once
 
 #include "field.cuh"
@@ -83,6 +84,41 @@ __device__ __noinline__ Pt jac_add(const Pt& P, const Pt& Q,
   Fe rVX = fe_mul(r, fe_sub(V, R.x, F), F);
   Fe S1J = fe_mul(S1, J, F);
   R.y = fe_sub(rVX, fe_dbl(S1J, F), F);
+  R.z = h_zero ? fe_zero() : Z3;  // h_zero here means P = -Q
+  return R;
+}
+
+// Complete Jacobian + affine mixed add (curve.madd): madd-2007-bl, then
+// P=Q -> double, P=-Q -> Z = 0, P=inf -> (x2, y2, 1) (the last select wins).
+__device__ __noinline__ Pt jac_madd(const Pt& P, const Fe& x2, const Fe& y2,
+                                    const FieldParams& F) {
+  if (fe_is_zero(P.z)) {
+    Pt R;
+    R.x = x2;
+    R.y = y2;
+    R.z = fe_one(F);
+    return R;
+  }
+  Fe Z1Z1 = fe_mul(P.z, P.z, F);
+  Fe U2 = fe_mul(x2, Z1Z1, F);
+  Fe Z1c = fe_mul(P.z, Z1Z1, F);
+  Fe S2 = fe_mul(y2, Z1c, F);
+  Fe H = fe_sub(U2, P.x, F);
+  Fe rhalf = fe_sub(S2, P.y, F);
+  bool h_zero = fe_is_zero(H);
+  if (h_zero && fe_is_zero(rhalf)) return jac_double(P, F);
+  Fe HH = fe_mul(H, H, F);
+  Fe I = fe_dbl(fe_dbl(HH, F), F);
+  Fe r = fe_dbl(rhalf, F);
+  Fe J = fe_mul(H, I, F);
+  Fe V = fe_mul(P.x, I, F);
+  Pt R;
+  R.x = fe_sub(fe_mul(r, r, F), fe_add(J, fe_dbl(V, F), F), F);
+  Fe rVX = fe_mul(r, fe_sub(V, R.x, F), F);
+  Fe Y1J = fe_mul(P.y, J, F);
+  R.y = fe_sub(rVX, fe_dbl(Y1J, F), F);
+  Fe ZH1 = fe_add(P.z, H, F);
+  Fe Z3 = fe_sub(fe_mul(ZH1, ZH1, F), fe_add(Z1Z1, HH, F), F);
   R.z = h_zero ? fe_zero() : Z3;  // h_zero here means P = -Q
   return R;
 }

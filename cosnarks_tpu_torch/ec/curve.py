@@ -7,7 +7,8 @@ projective identity (0 : 1 : 0), both handled branch-free with selects.
 The formulas live once, in the `_*_formula` functions over an ops object.
 Prime-field (G1) point ops go through the kernel wrappers of
 :mod:`.ec_kernels` (K2: complete Jacobian add / double, K3: RCB projective
-add / mixed add / double), whose plain versions run these same formulas
+add / mixed add / double, K5: complete Jacobian + affine mixed add), whose
+plain versions run these same formulas
 over plain field ops. G2 (Fq2) point ops run the formulas in torch ops, with
 their base-field products through K1 — the split the JAX package makes.
 """
@@ -135,6 +136,43 @@ def _add_formula(o, P, Q):
     return res
 
 
+def _madd_formula(o, P, Q_affine, valid=None):
+    """Complete mixed add, Jacobian P + affine Q = (x2, y2) (Z2 = 1):
+    madd-2007-bl (7M+4S) + select-based edge handling, correct for P=inf
+    (returns (x2, y2, 1)), P=Q (doubles), P=-Q (-> inf). `valid` lanes=False
+    return P unchanged. The selects run in the reference's order (cancel,
+    same, p_inf, valid), so the last one wins."""
+    X1, Y1, Z1 = P
+    X2, Y2 = Q_affine
+    Z1Z1 = o.mul(Z1, Z1)
+    U2, Z1c = o.mulstack((X2, Z1), (Z1Z1, Z1Z1))
+    S2 = o.mul(Y2, Z1c)
+    H = o.sub(U2, X1)
+    rhalf = o.sub(S2, Y1)
+    HH = o.mul(H, H)
+    I = o.double(o.double(HH))
+    r = o.double(rhalf)
+    J, V, r2 = o.mulstack((H, X1, r), (I, I, r))
+    X3 = o.sub(r2, o.add(J, o.double(V)))
+    ZH1 = o.add(Z1, H)
+    rVX, Y1J, ZH = o.mulstack((r, Y1, ZH1), (o.sub(V, X3), J, ZH1))
+    Y3 = o.sub(rVX, o.double(Y1J))
+    Z3 = o.sub(ZH, o.add(Z1Z1, HH))
+
+    p_inf = o.is_zero(Z1)
+    h_zero = o.is_zero(H)
+    r_zero = o.is_zero(rhalf)
+    same = h_zero & r_zero & ~p_inf
+    cancel = h_zero & ~r_zero & ~p_inf
+    res = (X3, Y3, o.select(cancel, o.zeros_like(Z3), Z3))
+    if bool(same.any()):
+        res = _select(o, same, _double_formula(o, P), res)
+    res = _select(o, p_inf, (X2, Y2, o.one_like(Z1)), res)
+    if valid is not None:
+        res = _select(o, valid, res, P)
+    return res
+
+
 def _mul_b3(spec: CurveSpec, o, x):
     """x * 3b for the RCB complete formulas. Small-int 3b (both G1 curves:
     9 and 12) is a double/add chain; Fq2 twists (G2) multiply by the
@@ -241,6 +279,40 @@ def add(spec: CurveSpec, P, Q):
 
         return ec_kernels.add(spec, P, Q)
     return _add_formula(spec.ops, P, Q)
+
+
+def madd(spec: CurveSpec, P, Q_affine, valid=None):
+    """Complete mixed add (Jacobian P + affine Q); `valid` lanes=False pass
+    P through. G1 batches broadcast, then launch K5."""
+    if _kernel_batch(spec, P):
+        from . import ec_kernels
+
+        return ec_kernels.madd(spec, P, Q_affine, valid)
+    return _madd_formula(spec.ops, P, Q_affine, valid)
+
+
+def add_unsafe(spec: CurveSpec, P, Q):
+    """Jacobian add handling infinities but NOT P == +-Q (undefined there):
+    safe when summands are distinct with cryptographic probability. No
+    kernel (the JAX package has none); torch ops over spec.ops."""
+    o = spec.ops
+    X1, Y1, Z1 = P
+    X2, Y2, Z2 = Q
+    Z1Z1, Z2Z2, t1, t2 = o.mulstack((Z1, Z2, Y1, Y2), (Z1, Z2, Z2, Z1))
+    Z12 = o.add(Z1, Z2)
+    U1, U2, S1, S2, W = o.mulstack(
+        (X1, X2, t1, t2, Z12), (Z2Z2, Z1Z1, Z2Z2, Z1Z1, Z12))
+    H = o.sub(U2, U1)
+    H2 = o.double(H)
+    r = o.double(o.sub(S2, S1))
+    I, r2 = o.mulstack((H2, r), (H2, r))
+    J, V, Z3 = o.mulstack((H, U1, o.sub(W, o.add(Z1Z1, Z2Z2))), (I, I, H))
+    X3 = o.sub(r2, o.add(J, o.double(V)))
+    rVX, S1J = o.mulstack((r, S1), (o.sub(V, X3), J))
+    Y3 = o.sub(rVX, o.double(S1J))
+    res = (X3, Y3, Z3)
+    res = select_point(spec, o.is_zero(Z1), Q, res)
+    return select_point(spec, o.is_zero(Z2), P, res)
 
 
 def proj_point_inf(spec: CurveSpec, shape=(), device=None):

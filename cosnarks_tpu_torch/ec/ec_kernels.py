@@ -1,10 +1,11 @@
-"""K2, K3 and K4: the G1 point kernels on Hopper, and their plain versions.
+"""K2–K6: the G1 point kernels on Hopper, and their plain versions.
 
-All three compute over BN254-sized prime fields (sixteen 16-bit limbs per
+All of them compute over BN254-sized prime fields (sixteen 16-bit limbs per
 coordinate, eight 32-bit words inside the kernel) with canonical values at
 every step, so their output limbs equal the plain versions' exactly. The
-field arithmetic they share is csrc/field.cuh. One thread handles one point
-(K2, K3) or one fold lane (K4); intermediates stay in registers.
+field arithmetic they share is csrc/field.cuh, the curve formulas
+csrc/point.cuh. One thread handles one point (K2, K3, K5) or one fold lane
+(K4), with intermediates in registers; K6 runs one thread block per window.
 
 K2 — complete Jacobian add and double (csrc/jacobian.cu). Replaces
   `_add_call` and `_double_call` of cosnarks_tpu/ec/pallas_ec.py: add-2007-bl
@@ -21,22 +22,34 @@ K4 — the MSM bucket fold (csrc/msm_fold.cu). Replaces `_level0_call` in
   loops over the K steps with both in registers, writing the pre-update
   running sum to buf[:, t, lane] every step. Lanes are contiguous in L, so
   neighbouring threads read and write neighbouring words.
+K5 — complete Jacobian + affine mixed add, optional validity mask
+  (csrc/jacobian_madd.cu). Replaces `_madd_call`: madd-2007-bl with the
+  selects of `curve.madd` (P=-Q -> inf, P=Q -> double, P=inf -> (x2, y2, 1),
+  then the mask).
+K6 — the weighted bucket reduction sum_j (j+1) S_j per window
+  (csrc/wreduce.cu). Replaces `_wreduce_call` with its decomposition (8 rows
+  of W/8 lanes, column sums, double suffix ladders); one block per window
+  runs the ladder levels as passes over scratch in device memory.
 
-What bounds them on the card: by the roofline, bytes. At the int64 limb
-boundary a coordinate is 128 bytes, and moving a point op's 6-9 coordinates
-(K2, K3) or a fold step's operands and dumped sum (K4) takes the card longer
-than their 8-16 field products of ~260 32-bit multiplies each. In practice
-they run far above that bound (PERF.md: K2 and K3 at 11-26x on 2^14
-points, K4 at 6x on level 0 and 40-43x on the 2560-lane projective level):
-they are latency- and occupancy-bound. One thread per point or lane keeps
-~30 field elements live (130-184 registers, nvcc --resource-usage in the
-smoke output), so few warps per SM hide the serial product chains, and a
-2560-lane level launches only 80 warps on 132 SMs. Fewer registers per
-thread, or several threads per point, is the lever for a later PR.
+What bounds them on the card: by the roofline, bytes for K2-K5, operations
+for K6 (the sum needs ~2W adds per window over W points read; its ladders do
+~1.25 W log2(W/8), 6.1-7.3x that). At the int64 limb boundary a coordinate
+is 128 bytes, and moving a point op's 5-9 coordinates (K2, K3, K5) or a fold
+step's operands and dumped sum (K4) takes the card longer than their 8-16
+field products of ~260 32-bit multiplies each. In practice they run far
+above their bounds (PERF.md: K2, K3 and K5 at 6.6-10.5x on 2^14 points,
+K4 at 5.9x on level 0 and 39x on the 2560-lane projective level, K6 at
+167-228x): they are latency- and occupancy-bound. One thread per point or
+lane keeps ~30 field elements live (130-184 registers, nvcc
+--resource-usage in the smoke output), so few warps per SM hide the serial
+product chains; a 2560-lane level launches only 80 warps, and K6 only one
+256-thread block per window, on 132 SMs. Fewer registers per thread, or
+several threads per point, is the lever for a later PR.
 
 Dispatch: CPU tensors take the plain versions (the formulas of
 :mod:`.curve` over :class:`PlainFqOps`); CUDA tensors launch or raise.
-Each `*_launch` wrapper counts its launches per op in `.launches[op]`.
+Each `*_launch` wrapper counts its launches per op in `.launches[op]`
+(K6, which has one op, per bucket width W).
 """
 
 from __future__ import annotations
@@ -79,6 +92,14 @@ def _unflatten(out, shape, n):
 
 def _on_cpu(tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
+
+
+def _check_mask(valid, total: int, device):
+    if valid is not None and (
+            valid.device != device or valid.dtype != torch.int64
+            or valid.shape != (total,) or not valid.is_contiguous()):
+        raise ValueError("validity mask must be a contiguous int64 "
+                         "(total,) tensor on the coordinates' device")
 
 
 # --------------------------------------------------------------------------
@@ -164,11 +185,7 @@ def proj_launch(spec, op: int, coords, valid=None):
         raise ValueError("coordinate batch sizes differ")
     if (op == PROJ_MADD_MASKED) != (valid is not None):
         raise ValueError("a validity mask goes with the masked madd only")
-    if valid is not None:
-        if (valid.device != device or valid.dtype != torch.int64
-                or valid.shape != (total,) or not valid.is_contiguous()):
-            raise ValueError("validity mask must be a contiguous int64 "
-                             "(total,) tensor on the coordinates' device")
+    _check_mask(valid, total, device)
     out = [torch.empty_like(coords[0]) for _ in range(3)]
     if total == 0:
         return out
@@ -326,3 +343,155 @@ def proj_fold(spec, qx, qy, qz, flags, K: int):
     if _on_cpu((qx, qy, qz, flags)):
         return fold_plain(spec, (qx, qy, qz), flags, K, proj_q=True)
     return fold_launch(spec, (qx, qy, qz), flags, K, proj_q=True)
+
+
+# --------------------------------------------------------------------------
+# K5: complete Jacobian + affine mixed add
+# --------------------------------------------------------------------------
+
+MADD, MADD_MASKED = 0, 1
+
+
+def madd_plain(spec, P, Q_affine, valid=None):
+    return curve._madd_formula(_plain_ops(spec), P, Q_affine, valid)
+
+
+def madd_launch(spec, coords, valid=None):
+    """Launch K5 on 5 flat contiguous (total, n) coordinates (x1, y1, z1,
+    x2, y2), masked when a (total,) int64 validity mask is given; returns
+    the 3 output coordinates."""
+    n = spec.ops.field.nlimbs
+    device = coords[0].device
+    if len(coords) != 5:
+        raise ValueError("the mixed add takes x1, y1, z1, x2, y2")
+    check_operands(coords, n, device)
+    total = coords[0].shape[0]
+    if any(c.shape[0] != total for c in coords):
+        raise ValueError("coordinate batch sizes differ")
+    _check_mask(valid, total, device)
+    out = [torch.empty_like(coords[0]) for _ in range(3)]
+    if total == 0:
+        return out
+    mode = MADD if valid is None else MADD_MASKED
+    lib = _build.load("jacobian_madd")
+    with torch.cuda.device(device):
+        launch(lib.cosnarks_jacobian_madd, ctypes.c_int(mode),
+               *[ptr(a) for a in coords],
+               ptr(valid) if valid is not None else None,
+               *[ptr(o) for o in out], ctypes.c_int64(total),
+               field_params(spec.ops.field))
+    count(madd_launch, mode)
+    return out
+
+
+madd_launch.launches = {}
+
+
+def madd(spec, P, Q_affine, valid=None):
+    n = spec.ops.field.nlimbs
+    flat, shape = _flatten(list(P) + list(Q_affine), n)
+    vflat = None
+    if valid is not None:
+        vflat = valid.expand(shape).reshape(-1)
+    if _on_cpu(flat):
+        return _unflatten(
+            madd_plain(spec, tuple(flat[:3]), tuple(flat[3:]), vflat),
+            shape, n)
+    if vflat is not None:
+        vflat = vflat.to(torch.int64).contiguous()
+    return _unflatten(madd_launch(spec, flat, vflat), shape, n)
+
+
+# --------------------------------------------------------------------------
+# K6: weighted bucket reduction
+# --------------------------------------------------------------------------
+
+WREDUCE_ROWS = 8  # L: rows of the (L, W/L) bucket block
+
+
+def _check_width(W: int):
+    if W < 64 or W & (W - 1):
+        raise ValueError(f"bucket width must be a power of two >= 64, "
+                         f"not {W}")
+
+
+def _suffix_ladder(spec, o, pts):
+    """suffix[j] = sum_{j' >= j} pts[j'] along the lane axis (dim -2):
+    max(1, ceil(log2 width)) levels, each adding pts[j + s] (the identity
+    (0 : 1 : 0) past the end) to pts[j] — `_wreduce_call`'s ladder."""
+    width = pts[0].shape[-2]
+    ident = (torch.zeros_like(pts[0]), o.one_like(pts[0]),
+             torch.zeros_like(pts[0]))
+    for t in range(max(1, (width - 1).bit_length())):
+        s = 1 << t
+        shifted = tuple(torch.cat([x[..., s:, :], i[..., :s, :]], dim=-2)
+                        for x, i in zip(pts, ident))
+        pts = curve._proj_add_formula(spec, o, pts, shifted)
+    return pts
+
+
+def wreduce_plain(spec, buckets):
+    """Plain version of K6, in the kernel's order of additions (so limb for
+    limb equal): buckets 3 x (nwin, W, n) -> 3 x (nwin, n)."""
+    o = _plain_ops(spec)
+    n = spec.ops.field.nlimbs
+    nwin, W = buckets[0].shape[:2]
+    L = WREDUCE_ROWS
+    H = W // L
+    s = tuple(x.reshape(nwin, L, H, n) for x in buckets)  # j = H*l + h
+    cols, m = s, L
+    while m > 1:  # C_h: three row-halving adds
+        half = m // 2
+        cols = curve._proj_add_formula(spec, o,
+                                       tuple(x[:, :half] for x in cols),
+                                       tuple(x[:, half:m] for x in cols))
+        m = half
+    u = _suffix_ladder(spec, o, _suffix_ladder(spec, o, cols))
+    w2 = tuple(x[:, 0, 0] for x in u)  # sum_h (h+1) C_h
+    rows = tuple(x[:, :, 0] for x in _suffix_ladder(spec, o, s))  # R_l
+    u = _suffix_ladder(spec, o, _suffix_ladder(spec, o, rows))
+    w1 = tuple(x[:, 1] for x in u)  # sum_l l R_l
+    for _ in range(H.bit_length() - 1):  # * H
+        w1 = curve._proj_double_formula(spec, o, w1)
+    return curve._proj_add_formula(spec, o, w1, w2)
+
+
+def wreduce_launch(spec, buckets):
+    """Launch K6 on 3 contiguous (nwin, W, n) bucket coordinates; returns
+    3 x (nwin, n)."""
+    n = spec.ops.field.nlimbs
+    device = buckets[0].device
+    check_operands(buckets, n, device)
+    nwin, W = buckets[0].shape[:2]
+    if any(tuple(b.shape) != (nwin, W, n) for b in buckets):
+        raise ValueError(f"expected buckets of shape {(nwin, W, n)}")
+    _check_width(W)
+    out = [torch.empty((nwin, n), dtype=torch.int64, device=device)
+           for _ in range(3)]
+    if nwin == 0:
+        return tuple(out)
+    # 2W points of 24 32-bit words per window (csrc/wreduce.cu)
+    scratch = torch.empty((nwin, 24, 2 * W), dtype=torch.int32,
+                          device=device)
+    lib = _build.load("wreduce")
+    with torch.cuda.device(device):
+        launch(lib.cosnarks_wreduce, *[ptr(b) for b in buckets],
+               *[ptr(x) for x in out], ptr(scratch), ctypes.c_int64(nwin),
+               ctypes.c_int64(W), ctypes.c_int(_b3(spec)),
+               field_params(spec.ops.field))
+    count(wreduce_launch, W)
+    return tuple(out)
+
+
+wreduce_launch.launches = {}
+
+
+def weighted_bucket_sum(spec, buckets):
+    """sum_j (j+1) * buckets[:, j] per window in one launch
+    (pallas_ec.weighted_bucket_sum's signature): buckets 3 x (nwin, W, n),
+    W a power of two >= 64; returns 3 x (nwin, n) projective points."""
+    _check_width(buckets[0].shape[1])
+    flat = tuple(b.contiguous() for b in buckets)
+    if _on_cpu(flat):
+        return wreduce_plain(spec, flat)
+    return wreduce_launch(spec, flat)

@@ -15,6 +15,10 @@ cosnarks_tpu.ec.msm.
     double suffix ladders (K3 projective adds)
  5. window Horner combine, then one projective -> Jacobian conversion
 
+`_pippenger_wsums` + `_host_horner` is the package's other split: steps
+1-3, then step 4 as one K6 launch (`ec_kernels.weighted_bucket_sum`), and
+Horner on the host. msm() does not take it.
+
 Unlike the TPU, where `pallas_ec.lm_geometry` decides whether a level tiles
 into (8, 128) blocks, the CUDA fold launches at every level whose stream
 spans more than one chunk per window; only the final single-chunk level runs
@@ -98,9 +102,9 @@ def _sort_by_bucket(bucket, sign, inf_in, c: int, N: int):
     return order, sortedb, sorted_sign, sorted_inf
 
 
-def _pippenger_signed(spec: CurveSpec, pts, scalars_std, c: int):
-    """Full MSM: signed digits -> sorted buckets -> chunked segmented
-    reduction -> weighted reduction -> Horner."""
+def _window_buckets(spec: CurveSpec, pts, scalars_std, c: int):
+    """Signed digits -> sorted buckets -> chunked segmented reduction:
+    3 x (nwin, 2^(c-1), n) projective sums of buckets 1..2^(c-1)."""
     o = spec.ops
     X, Y, Z = pts
     N = X.shape[0]
@@ -109,16 +113,48 @@ def _pippenger_signed(spec: CurveSpec, pts, scalars_std, c: int):
 
     digits = signed_digits(spec, scalars_std, c)  # (nwin, N)
     nwin = digits.shape[0]
-    bucket = digits.abs()
-    sign = digits < 0
-
     order, sortedb, sorted_sign, sorted_inf = _sort_by_bucket(
-        bucket, sign, inf_in, c, N)
+        digits.abs(), digits < 0, inf_in, c, N)
     acc = _bucket_accumulate(spec, order, sortedb, sorted_sign, sorted_inf,
                              X, Y, B, nwin)
-    buckets = tuple(x[:, 1:] for x in acc)
-    wsums = _weighted_bucket_sum(spec, buckets)  # (nwin,) projective
+    return tuple(x[:, 1:] for x in acc)
+
+
+def _pippenger_signed(spec: CurveSpec, pts, scalars_std, c: int):
+    """Full MSM: window buckets -> weighted reduction -> Horner."""
+    wsums = _weighted_bucket_sum(
+        spec, _window_buckets(spec, pts, scalars_std, c))  # (nwin,)
     return ec.proj_to_jacobian(spec, _horner_combine(spec, wsums, c))
+
+
+def _pippenger_wsums(spec: CurveSpec, pts, scalars_std, c: int):
+    """The other split: `_window_buckets` as in `_pippenger_signed`, then
+    the per-window weighted bucket sums in one K6 launch
+    (`ec_kernels.weighted_bucket_sum`); Horner is left to the host
+    (`_host_horner`). Not used by msm(); the building block of a multi-card
+    reduction. Returns 3 x (nwin, n) projective window sums."""
+    from . import ec_kernels
+
+    return ec_kernels.weighted_bucket_sum(
+        spec, _window_buckets(spec, pts, scalars_std, c))
+
+
+def _host_horner(spec: CurveSpec, wsums, c: int):
+    """sum_w 2^(c*w) W_w on the host from projective window sums (a few KB
+    to fetch); returns one Jacobian point (Z in {0, 1}) on wsums' device."""
+    from . import host
+
+    pts = ec.decode_points(spec, ec.proj_to_jacobian(spec, wsums))
+    hc = host.host_curve(spec)
+    acc = None
+    for pt in reversed(pts):
+        if acc is not None:
+            for _ in range(c):
+                acc = hc.double(acc)
+        acc = hc.add(acc, hc.lift_affine(pt))
+    single = ec.encode_points(spec, [hc.affine_ints(acc)],
+                              device=wsums[0].device)
+    return tuple(x[0] for x in single)
 
 
 def _weighted_bucket_sum(spec: CurveSpec, buckets):

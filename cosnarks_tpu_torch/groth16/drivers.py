@@ -1,8 +1,8 @@
 """Groth16 MPC drivers: the per-protocol ops the prover is generic over
-(port of cosnarks_tpu.groth16.drivers; the Shamir driver comes with a later
-slice). "Half shares" are additive shares — after the witness map everything
-runs on plain per-party tensors + group sums, so the heavy kernels (MSM,
-NTT, scalar-mul) are identical across drivers.
+(port of cosnarks_tpu.groth16.drivers: plain, Rep3 and Shamir). "Half
+shares" are additive (Rep3) or degree-2t (Shamir) shares — after the witness
+map everything runs on plain per-party tensors + group sums, so the heavy
+kernels (MSM, NTT, scalar-mul) are identical across drivers.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ from .. import resolve_device
 from ..ec import curve as ec
 from ..ec import msm as msm_mod
 from ..ff import mont
-from ..mpc import chacha, rep3
+from ..mpc import chacha, rep3, shamir
 from ..mpc.rng import LABEL_FIELD, draw_field
 from . import witness_map as wm
 
@@ -121,6 +121,35 @@ class Rep3Driver:
         if self.id == 0:
             return ec.add(spec, pt, public_pt)
         return pt
+
+
+class ShamirDriver(PlainDriver):
+    """n-party Shamir driver. Shares are single tensors that each party
+    computes on as the plain driver does on its values: public values are
+    constant-polynomial shares, a product of degree-t shares is a valid
+    degree-2t "half share", and adding a public point shifts every share.
+    `rand`, the half-point opens (interpolation of 2t+1 contributions in the
+    exponent) and [r]*B (after a king point degree reduction) use the
+    network."""
+
+    def __init__(self, net, state: shamir.ShamirState):
+        self.net = net
+        self.state = state
+        self.id = net.id
+        self.device = state.device
+
+    def rand(self, field):
+        return shamir.rand(field, self.state, net=self.net)
+
+    def open_half_point(self, spec, pt):
+        return shamir.open_point(spec, pt, self.net, self.state,
+                                 degree=2 * self.state.t)
+
+    def scalar_mul_half_point(self, spec, pt_half, r):
+        reduced = shamir.degree_reduce_point(spec, pt_half, self.net,
+                                             self.state)
+        return ec.scalar_mul(spec, reduced,
+                             mont.from_mont(spec.scalar_field, r))
 
 
 def msm_half(spec, points, scalars_mont):

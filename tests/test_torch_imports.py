@@ -36,5 +36,6 @@ def test_port_package_is_complete():
     names = {str(p.relative_to(ROOT / "cosnarks_tpu_torch")) for p in FILES
              if p.name != "chip_smoke.py"}
     for module in ("ff/mont.py", "ff/mont_kernel.py", "ec/ec_kernels.py",
-                   "ec/msm.py", "groth16/prove.py", "convert.py"):
+                   "ec/msm.py", "groth16/prove.py", "convert.py",
+                   "mpc/shamir.py", "mpc/bridges.py"):
         assert module in names
