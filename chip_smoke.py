@@ -7,12 +7,15 @@ Phases, one JSON line each; any failure exits non-zero:
   1. build the six kernels from cosnarks_tpu_torch/csrc (nvcc, sm_90a);
   2. hold every kernel mode against its plain PyTorch version at main-path
      shapes (exact limb equality), timed on the device beside its bound
-     (the plain version with its host launch overhead), call K5 through its
+     (the plain version with its host launch overhead): K1 at 3, 2^15,
+     2^17 and 2^20 products, K2 at 1, 3 and 2^14 points (edge lanes
+     included), K3-K6 at their proof or MSM shapes; call K5 through its
      entry point curve.madd (a broadcast affine Q, a bool mask), and show
      that a wrapper raises on a bad CUDA input instead of falling back;
   3. the main path: a domain-2^16 synthetic zkey, then the 3-party Rep3
      Groth16 prover over run_parties, twice; every party returns the same
      proof, it verifies, and every kernel launched during the warm prove;
+     the phase line carries the launch-size histogram of each prover mode;
   3b. the 3-party Shamir (n = 3, t = 1) Groth16 prover on the same zkey,
      once (warm card and caches): the same checks, with its own counts;
   4. a 2^20-point G1 MSM at c = 15 over points [k_i]G made on the card,
@@ -20,9 +23,13 @@ Phases, one JSON line each; any failure exits non-zero:
   4b. the same MSM through the other split, _host_horner(_pippenger_wsums):
      K4 and the K6 weighted bucket reduction on the card, Horner on the host;
      then ten pairs of it and msm(), taking turns at going first;
-  5. the kernel table (every mode of K1-K6, each with its launches and the
-     phase that counted them); then the card's name and power limit; then
-  6. {"ok": true, "device": {...}} as the last line.
+  5. main_path_loss: K1-K3's prover modes timed (and checked) at every
+     launch-size bucket of the two proofs, and each mode's loss per proof,
+     sum of launches x (ms - bound);
+  6. the kernel table (every mode of K1-K6 at every checked shape, each with
+     its launches, the phase that counted them and its main-path loss);
+     then the card's name and power limit; then
+     {"ok": true, "device": {...}} as the last line.
 Imports nothing of JAX or the JAX package; needs one CUDA card.
 """
 
@@ -42,6 +49,12 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 MULS_PER_FIELD_MUL = 264  # 8x8 + 8x8 32x32->64 products (lo + hi) + 8 m's
 LIMB_BYTES = 16 * 8  # one field element at the int64 limb boundary
+
+
+def pow2(n: int) -> str:
+    """'2^k' for a power of two above 1, else the number."""
+    return f"2^{n.bit_length() - 1}" if n > 1 and n & (n - 1) == 0 \
+        else str(n)
 
 
 def emit(obj):
@@ -97,22 +110,28 @@ def main() -> int:
         x[..., 15] &= 0x1FFF  # < 2^253 < p: canonical
         return x
 
+    sleep_s = 0.05
+
     def timed(fn, iters, queue_ahead=False):
-        """Mean ms per call between CUDA events. With queue_ahead, the calls
-        are queued behind a 50 ms device sleep, so the events time the
-        device's back-to-back runs and not the host's launch overhead."""
+        """Mean ms per call between CUDA events, and the host's ms to
+        enqueue them all. With queue_ahead, the calls are queued behind a
+        50 ms device sleep, so while the enqueue takes less than that the
+        events time the device's back-to-back runs and not the host's
+        launch overhead."""
         fn()
         torch.cuda.synchronize()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         if queue_ahead:
-            torch.cuda._sleep(int(0.05 * sm_clock_hz))
+            torch.cuda._sleep(int(sleep_s * sm_clock_hz))
+        t0 = time.perf_counter()
         start.record()
         for _ in range(iters):
             out = fn()
         end.record()
+        host_ms = (time.perf_counter() - t0) * 1e3
         torch.cuda.synchronize()
-        return out, start.elapsed_time(end) / iters
+        return out, start.elapsed_time(end) / iters, host_ms
 
     def flat(ts):
         for t in ts:
@@ -131,32 +150,68 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
+    # every kernel mode: the wrapper and mode that count it, and the phase
+    # whose run gives its launches (None: launched by the checks alone)
+    modes = {
+        "K1 mont_mul": (mont_kernel.mul, 0, "rep3_groth16"),
+        "K2 jacobian add": (ek.jacobian_launch, ek.JAC_ADD, "rep3_groth16"),
+        "K2 jacobian double": (ek.jacobian_launch, ek.JAC_DOUBLE,
+                               "rep3_groth16"),
+        "K3 proj add": (ek.proj_launch, ek.PROJ_ADD, "rep3_groth16"),
+        "K3 proj madd (masked)": (ek.proj_launch, ek.PROJ_MADD_MASKED,
+                                  None),
+        "K3 proj double": (ek.proj_launch, ek.PROJ_DOUBLE, "rep3_groth16"),
+        "K4 fold level 0": (ek.fold_launch, 0, "rep3_groth16"),
+        "K4 fold projective": (ek.fold_launch, 1, "rep3_groth16"),
+        "K5 jacobian madd": (ek.madd_launch, ek.MADD, None),
+        "K5 jacobian madd (masked)": (ek.madd_launch, ek.MADD_MASKED, None),
+        "K6 wreduce 2^16/c=13": (ek.wreduce_launch, 4096, None),
+        "K6 wreduce 2^20/c=15": (ek.wreduce_launch, 16384, "msm_wsums_2^20"),
+    }
     rows = {}
 
     def check(name, kernel_fn, plain_fn, nbytes, nfield_muls, iters,
-              replaces, source, **extra):
-        out, ms = timed(kernel_fn, iters, queue_ahead=True)
-        ref, plain_ms = timed(plain_fn, 1)
+              replaces, source, shape, mode=None, **extra):
+        """Time a kernel mode at one shape beside its bound, hold it against
+        its plain version and keep its row for the kernel table."""
+        out, ms, enqueue_ms = timed(kernel_fn, iters, queue_ahead=True)
+        ref, plain_ms, _ = timed(plain_fn, 1)
         err = max_err(out, ref)
         bms, by = bound(nbytes, nfield_muls * MULS_PER_FIELD_MUL)
-        row = {"name": name, "route": "cuda", "source": source,
-               "replaces": replaces, "max_abs_err": err, "ms": ms,
-               "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-               "library_ms": None}
+        row = {"name": name, "mode": mode or name, "shape": shape,
+               "route": "cuda", "source": source, "replaces": replaces,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
         rows[name] = row
-        emit({"phase": "kernel_check", **row, **extra})
+        emit({"phase": "kernel_check", **row, "iters": iters,
+              "enqueue_ms": enqueue_ms,
+              "queued_within_sleep": enqueue_ms < sleep_s * 1e3, **extra})
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from plain version")
 
-    # K1 at 2^20 elements (the witness-map / NTT batch at 2^20)
+    K1_SITE = ("cosnarks_tpu/ff/pallas_mont.py:145 (_mul_call), :184 "
+               "(_mul_call_lm)")
+    K1_SRC = "cosnarks_tpu_torch/csrc/mont_mul.cu"
+    K2_ADD_SITE = "cosnarks_tpu/ec/pallas_ec.py:102 (_add_call)"
+    K2_DOUBLE_SITE = "cosnarks_tpu/ec/pallas_ec.py:130 (_double_call)"
+    K2_SRC = "cosnarks_tpu_torch/csrc/jacobian.cu"
+
+    # K1 at the main path's batch sizes: 3 products (one Fq2 product of a G2
+    # point op), 2^15 (an NTT butterfly stage of one share component at
+    # domain 2^16), 2^17 (the Fq2 products of a G2 MSM level-0 step) and
+    # 2^20 (the table's shape)
     n1 = 1 << 20
     a, b = rand_fe(n1), rand_fe(n1)
-    check("K1 mont_mul", lambda: (mont_kernel.mul(F, a, b),),
-          lambda: (mont.mul_plain(F, a, b),), 3 * n1 * LIMB_BYTES, n1, 20,
-          "cosnarks_tpu/ff/pallas_mont.py:145 (_mul_call), :184 "
-          "(_mul_call_lm)", "cosnarks_tpu_torch/csrc/mont_mul.cu")
+    for n, iters in ((3, 200), (1 << 15, 200), (1 << 17, 50), (n1, 20)):
+        x, y = a[:n], b[:n]
+        check(f"K1 mont_mul {pow2(n)}",
+              lambda x=x, y=y: (mont_kernel.mul(F, x, y),),
+              lambda x=x, y=y: (mont.mul_plain(F, x, y),),
+              3 * n * LIMB_BYTES, n, iters, K1_SITE, K1_SRC,
+              shape=[n, 16], mode="K1 mont_mul")
 
     # K2 / K3 at 2^14 points with infinity, P = Q and P = -Q lanes mixed in
+    # (lane mod 8: 1 P = Q, 2 P = -Q, 3 P = inf, 4 Q = inf)
     n2 = 1 << 14
     P = [rand_fe(n2) for _ in range(3)]
     Q = [rand_fe(n2) for _ in range(3)]
@@ -173,21 +228,36 @@ def main() -> int:
     P = [x.contiguous() for x in P]
     Q = [x.contiguous() for x in Q]
     finite = ((lane % 8 != 3) & (lane % 8 != 4))
-    n_same = int((lane % 8 == 1).sum())
+    same = lane % 8 == 1
     g1 = BN254_G1
-    add_muls = int(finite.sum()) * 16 + n_same * 7
-    check("K2 jacobian add",
-          lambda: ek.jacobian_launch(g1, ek.JAC_ADD, P + Q),
-          lambda: ek.add_plain(g1, tuple(P), tuple(Q)),
-          9 * n2 * LIMB_BYTES, add_muls, 20,
-          "cosnarks_tpu/ec/pallas_ec.py:102 (_add_call)",
-          "cosnarks_tpu_torch/csrc/jacobian.cu")
-    check("K2 jacobian double",
-          lambda: ek.jacobian_launch(g1, ek.JAC_DOUBLE, P),
-          lambda: ek.double_plain(g1, tuple(P)),
-          6 * n2 * LIMB_BYTES, 7 * n2, 20,
-          "cosnarks_tpu/ec/pallas_ec.py:130 (_double_call)",
-          "cosnarks_tpu_torch/csrc/jacobian.cu")
+    # K2 at the main path's single points (scalar_mul: one ordinary lane,
+    # one P = Q lane), at 3 points (Shamir's batched scalar mul: lanes 0-2,
+    # ordinary, P = Q, P = -Q) and at 2^14 points with every edge lane
+    for label, sl, iters in (("1", slice(0, 1), 200),
+                             ("1 (P = Q)", slice(1, 2), 200),
+                             ("3", slice(0, 3), 200),
+                             ("2^14", slice(0, n2), 20)):
+        Ps, Qs = [x[sl] for x in P], [x[sl] for x in Q]
+        n = Ps[0].shape[0]
+        add_muls = int(finite[sl].sum()) * 16 + int(same[sl].sum()) * 7
+        check(f"K2 jacobian add {label}",
+              lambda Ps=Ps, Qs=Qs: ek.jacobian_launch(g1, ek.JAC_ADD,
+                                                      Ps + Qs),
+              lambda Ps=Ps, Qs=Qs: ek.add_plain(g1, tuple(Ps), tuple(Qs)),
+              9 * n * LIMB_BYTES, add_muls, iters, K2_ADD_SITE, K2_SRC,
+              shape=[n, 16], mode="K2 jacobian add")
+    # the double at 1 ordinary point, at 3 (lanes 2-4, P = inf on lane 3)
+    # and at 2^14
+    for label, sl, iters in (("1", slice(0, 1), 200),
+                             ("3 (P = inf)", slice(2, 5), 200),
+                             ("2^14", slice(0, n2), 20)):
+        Ps = [x[sl] for x in P]
+        n = Ps[0].shape[0]
+        check(f"K2 jacobian double {label}",
+              lambda Ps=Ps: ek.jacobian_launch(g1, ek.JAC_DOUBLE, Ps),
+              lambda Ps=Ps: ek.double_plain(g1, tuple(Ps)),
+              6 * n * LIMB_BYTES, 7 * n, iters, K2_DOUBLE_SITE, K2_SRC,
+              shape=[n, 16], mode="K2 jacobian double")
     PP = [P[0], P[1], torch.where((lane % 8 == 3)[:, None],
                                   torch.zeros_like(P[2]), P[2])]
     PP[0] = torch.where((lane % 8 == 3)[:, None], torch.zeros_like(P[0]),
@@ -201,7 +271,7 @@ def main() -> int:
           lambda: ek.proj_add_plain(g1, tuple(PP), tuple(Q)),
           9 * n2 * LIMB_BYTES, 12 * n2, 20,
           "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, add)",
-          "cosnarks_tpu_torch/csrc/proj_op.cu")
+          "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n2, 16])
     check("K3 proj madd (masked)",
           lambda: ek.proj_launch(g1, ek.PROJ_MADD_MASKED, PP + Q[:2],
                                  valid),
@@ -209,13 +279,13 @@ def main() -> int:
                                      valid != 0),
           8 * n2 * LIMB_BYTES + n2 * 8, 11 * int(valid.sum()), 20,
           "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, madd)",
-          "cosnarks_tpu_torch/csrc/proj_op.cu")
+          "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n2, 16])
     check("K3 proj double",
           lambda: ek.proj_launch(g1, ek.PROJ_DOUBLE, PP),
           lambda: ek.proj_double_plain(g1, tuple(PP)),
           6 * n2 * LIMB_BYTES, 8 * n2, 20,
           "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, double)",
-          "cosnarks_tpu_torch/csrc/proj_op.cu")
+          "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n2, 16])
 
     # K4: level 0 at the 2^16 / c = 13 shape (20 windows x 2048 chunks),
     # projective at its level-1 shape (L = 2560)
@@ -243,7 +313,7 @@ def main() -> int:
           (2 * 8 * K * L0 + K * L0 + 3 * 16 * K * L0 + 6 * 16 * L0) * 8,
           11 * n_madd, 5,
           "cosnarks_tpu/ec/pallas_ec.py:340 (_level0_call, proj_q=False)",
-          "cosnarks_tpu_torch/csrc/msm_fold.cu")
+          "cosnarks_tpu_torch/csrc/msm_fold.cu", shape=[K, L0])
     L1 = 2560
     fl1, ch1, _ = fold_flags(L1)
     q1 = [rand_fe(K, L1).permute(2, 0, 1).contiguous() for _ in range(3)]
@@ -253,7 +323,7 @@ def main() -> int:
           (3 * 16 * K * L1 + K * L1 + 3 * 16 * K * L1 + 6 * 16 * L1) * 8,
           12 * int((~ch1).sum()), 20,
           "cosnarks_tpu/ec/pallas_ec.py:340 (_level0_call, proj_q=True)",
-          "cosnarks_tpu_torch/csrc/msm_fold.cu")
+          "cosnarks_tpu_torch/csrc/msm_fold.cu", shape=[K, L1])
 
     # K5 at 2^14 points: Jacobian P with P = Q (X1 = x2 Z1^2, Y1 = y2 Z1^3)
     # on lanes 1 mod 8, P = -Q on lanes 2 mod 8, P = inf on lanes 3 mod 8;
@@ -281,7 +351,7 @@ def main() -> int:
               11 * int(live.sum()), 20,
               "cosnarks_tpu/ec/pallas_ec.py:157 (_madd_call"
               + (", masked)" if masked else ")"),
-              "cosnarks_tpu_torch/csrc/jacobian_madd.cu")
+              "cosnarks_tpu_torch/csrc/jacobian_madd.cu", shape=[n2, 16])
 
     # K5's entry point, curve.madd: one affine Q broadcast over the batch,
     # unmasked and with a bool mask, launches K5 and equals the plain version
@@ -349,29 +419,21 @@ def main() -> int:
     def clear_counts():
         for c in counters:
             c.launches.clear()
+            c.sizes.clear()
 
     def read_counts():
         return {c.__qualname__: dict(c.launches) for c in counters}
 
-    # every kernel mode, the wrapper and mode that count it, and the phase
-    # whose run gives its launches
-    modes = {
-        "K1 mont_mul": (mont_kernel.mul, 0, "rep3_groth16"),
-        "K2 jacobian add": (ek.jacobian_launch, ek.JAC_ADD, "rep3_groth16"),
-        "K2 jacobian double": (ek.jacobian_launch, ek.JAC_DOUBLE,
-                               "rep3_groth16"),
-        "K3 proj add": (ek.proj_launch, ek.PROJ_ADD, "rep3_groth16"),
-        "K3 proj madd (masked)": (ek.proj_launch, ek.PROJ_MADD_MASKED,
-                                  None),
-        "K3 proj double": (ek.proj_launch, ek.PROJ_DOUBLE, "rep3_groth16"),
-        "K4 fold level 0": (ek.fold_launch, 0, "rep3_groth16"),
-        "K4 fold projective": (ek.fold_launch, 1, "rep3_groth16"),
-        "K5 jacobian madd": (ek.madd_launch, ek.MADD, None),
-        "K5 jacobian madd (masked)": (ek.madd_launch, ek.MADD_MASKED, None),
-        "K6 wreduce 2^16/c=13": (ek.wreduce_launch, 4096, None),
-        "K6 wreduce 2^20/c=15": (ek.wreduce_launch, 16384, "msm_wsums_2^20"),
-    }
-    counts_by_phase = {}
+    def read_sizes():
+        """The launch-size histogram of every prover mode: {mode name:
+        {bucket: launches}}, bucket the power of two at or above the
+        launch's batch (products, points, fold lanes)."""
+        return {name: {str(bk): n for (m, bk), n in sorted(fn.sizes.items())
+                       if m == mode}
+                for name, (fn, mode, phase) in modes.items()
+                if phase == "rep3_groth16"}
+
+    counts_by_phase, sizes_by_phase = {}, {}
 
     def require_launched(phase, names):
         """Fail unless every mode in `names` launched in `phase`'s run."""
@@ -420,6 +482,7 @@ def main() -> int:
     clear_counts()
     res, t_warm = run_prove(rep3_party)
     counts_by_phase["rep3_groth16"] = by_op = read_counts()
+    sizes_by_phase["rep3_groth16"] = sizes = read_sizes()
     require_launched("rep3_groth16", prover_modes)
     emit({"phase": "rep3_groth16", "domain": zkey.domain_size,
           "zkey_seconds": t_zkey, "first_prove_s": t_first,
@@ -427,7 +490,7 @@ def main() -> int:
           "verified": True,
           "phase_seconds_by_party": [r[1] for r in res],
           "launches": {k: sum(v.values()) for k, v in by_op.items()},
-          "launches_by_mode": by_op})
+          "launches_by_mode": by_op, "launch_sizes": sizes})
     del shares, res
 
     # ---- phase 3b: 3-party Shamir (n = 3, t = 1) on the same zkey --------
@@ -442,12 +505,13 @@ def main() -> int:
     clear_counts()
     res, t_shamir = run_prove(shamir_party)
     counts_by_phase["shamir_groth16"] = by_op = read_counts()
+    sizes_by_phase["shamir_groth16"] = sizes = read_sizes()
     require_launched("shamir_groth16", prover_modes)
     emit({"phase": "shamir_groth16", "domain": zkey.domain_size,
           "n": 3, "t": 1, "prove_s": t_shamir, "verified": True,
           "phase_seconds_by_party": [r[1] for r in res],
           "launches": {k: sum(v.values()) for k, v in by_op.items()},
-          "launches_by_mode": by_op})
+          "launches_by_mode": by_op, "launch_sizes": sizes})
     del zkey, sh_shares, res
     torch.cuda.empty_cache()
 
@@ -523,11 +587,76 @@ def main() -> int:
           "points_per_s": nm / min(wtimes), "matches_host": True,
           "launches_by_mode": by_op})
 
-    # ---- phase 5: kernel table, card, result -----------------------------
-    for name, (fn, mode, phase) in modes.items():
+    del pts, kt, st, G, out, wout
+    torch.cuda.empty_cache()
+
+    # ---- phase 5: the proofs' loss, launch size by launch size -----------
+    # Each K1-K3 prover mode is timed at every size bucket at which the warm
+    # Rep3 or the Shamir proof launched it (random canonical operands,
+    # ordinary points), held against its plain version, and its loss per
+    # proof summed as launches x (ms - bound_ms), a bucket at or below its
+    # bound adding 0
+    def case(launch, plain, ncoords, nout, field_muls):
+        def make(n):
+            c = [rand_fe(n) for _ in range(ncoords)]
+            return (lambda: launch(c), lambda: plain(c),
+                    (ncoords + nout) * n * LIMB_BYTES, field_muls * n)
+        return make
+
+    cases = {
+        "K1 mont_mul": case(lambda c: (mont_kernel.mul(F, *c),),
+                            lambda c: (mont.mul_plain(F, *c),), 2, 1, 1),
+        "K2 jacobian add": case(
+            lambda c: ek.jacobian_launch(g1, ek.JAC_ADD, c),
+            lambda c: ek.add_plain(g1, tuple(c[:3]), tuple(c[3:])),
+            6, 3, 16),
+        "K2 jacobian double": case(
+            lambda c: ek.jacobian_launch(g1, ek.JAC_DOUBLE, c),
+            lambda c: ek.double_plain(g1, tuple(c)), 3, 3, 7),
+        "K3 proj add": case(
+            lambda c: ek.proj_launch(g1, ek.PROJ_ADD, c),
+            lambda c: ek.proj_add_plain(g1, tuple(c[:3]), tuple(c[3:])),
+            6, 3, 12),
+        "K3 proj double": case(
+            lambda c: ek.proj_launch(g1, ek.PROJ_DOUBLE, c),
+            lambda c: ek.proj_double_plain(g1, tuple(c)), 3, 3, 8),
+    }
+    proofs = ("rep3_groth16", "shamir_groth16")
+    buckets, loss = [], {ph: dict.fromkeys(cases, 0.0) for ph in proofs}
+    for name, make in cases.items():
+        for n in sorted({int(bk) for ph in proofs
+                         for bk in sizes_by_phase[ph][name]}):
+            kernel_fn, plain_fn, nbytes, nfield_muls = make(n)
+            out, ms, enqueue_ms = timed(kernel_fn, 200 if n <= 1 << 15
+                                        else 20, queue_ahead=True)
+            if max_err(out, plain_fn()) != 0:
+                raise AssertionError(f"{name} at {n}: kernel differs from "
+                                     "plain version")
+            bms, by = bound(nbytes, nfield_muls * MULS_PER_FIELD_MUL)
+            launches = {ph: sizes_by_phase[ph][name].get(str(n), 0)
+                        for ph in proofs}
+            buckets.append({"mode": name, "bucket": n, "ms": ms,
+                            "bound_ms": bms, "bound_by": by,
+                            "max_abs_err": 0, "enqueue_ms": enqueue_ms,
+                            "launches": launches})
+            for ph in proofs:
+                loss[ph][name] += launches[ph] * max(0.0, ms - bms)
+    emit({"phase": "main_path_loss", "buckets": buckets, "loss_ms": loss})
+
+    # ---- phase 6: kernel table, card, result -----------------------------
+    for row in rows.values():
+        fn, mode, phase = modes[row["mode"]]
         got = counts_by_phase[phase or "rep3_groth16"]
-        rows[name]["launches"] = got[fn.__qualname__].get(mode, 0)
-        rows[name]["reached_by"] = phase or "kernel_check"
+        row["launches"] = got[fn.__qualname__].get(mode, 0)
+        row["reached_by"] = phase or "kernel_check"
+        if row["mode"] in cases:
+            row["launches_at_shape"] = sizes_by_phase["rep3_groth16"][
+                row["mode"]].get(str(mont_kernel.size_bucket(
+                    row["shape"][0])), 0)
+            row["main_path_loss_ms"] = loss["rep3_groth16"][row["mode"]]
+        else:
+            row["main_path_loss_ms"] = row["launches"] * max(
+                0.0, row["ms"] - row["bound_ms"])
     emit({"kernels": list(rows.values())})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

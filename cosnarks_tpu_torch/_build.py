@@ -36,7 +36,8 @@ _INT = ctypes.c_int
 _PARAMS = ctypes.POINTER(ctypes.c_uint32)
 # C signatures of the entry points (all return cudaGetLastError()).
 SIGNATURES = {
-    "mont_mul": ("cosnarks_mont_mul", [_P, _P, _P, _I64, _PARAMS, _P]),
+    "mont_mul": ("cosnarks_mont_mul",
+                 [_P, _P, _P, _I64, _INT, _INT, _PARAMS, _P]),
     "jacobian": ("cosnarks_jacobian",
                  [_INT] + [_P] * 9 + [_I64, _PARAMS, _P]),
     "proj_op": ("cosnarks_proj_op",

@@ -5,6 +5,15 @@
 // words; R = 2^256 either way, so Montgomery values are unchanged. Every
 // function returns the canonical representative (< p), so kernel outputs
 // equal the plain PyTorch versions limb for limb.
+//
+// Two ways across the boundary. fe_load / fe_store read and write an
+// element's limbs from the thread that owns it (K3-K6): neighbouring threads
+// are 128 bytes apart, so a warp's 8-byte access touches 32 lines for 256
+// useful bytes. The tile helpers at the end (K1, K2) move a block's
+// consecutive elements through shared memory instead: 16-byte cp.async
+// copies and 16-byte stores with neighbouring threads on neighbouring
+// addresses, each element in a row padded to 144 bytes so that eight
+// threads reading 16 bytes of eight rows hit 32 distinct banks.
 #pragma once
 
 #include <cstdint>
@@ -184,6 +193,84 @@ constexpr int kThreads = 128;
 
 inline unsigned int blocks_for(int64_t total) {
   return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+}
+
+// ---- tiles staged through shared memory (K1, K2) --------------------------
+
+constexpr int kPieces = NL * 8 / 16;      // 16-byte pieces per element: 8
+constexpr int kRowBytes = NL * 8 + 16;    // padded shared-memory row: 144
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Start copying n consecutive elements from src (16-byte aligned) into
+// padded rows at dst; every thread of the block takes part. Commit, wait
+// and __syncthreads() before reading the rows.
+__device__ __forceinline__ void tile_stage(unsigned char* dst,
+                                           const int64_t* src, int n) {
+  const char* g = reinterpret_cast<const char*>(src);
+  for (int c = threadIdx.x; c < n * kPieces; c += blockDim.x)
+    cp_async16(dst + (c / kPieces) * kRowBytes + (c % kPieces) * 16,
+               g + c * 16);
+}
+
+// Store n padded rows at src to n consecutive elements at dst (16-byte
+// aligned); every thread of the block takes part.
+__device__ __forceinline__ void tile_store(int64_t* dst,
+                                           const unsigned char* src, int n) {
+  char* g = reinterpret_cast<char*>(dst);
+  for (int c = threadIdx.x; c < n * kPieces; c += blockDim.x)
+    *reinterpret_cast<uint4*>(g + c * 16) = *reinterpret_cast<const uint4*>(
+        src + (c / kPieces) * kRowBytes + (c % kPieces) * 16);
+}
+
+// Element from a padded row: piece i holds limbs 2i and 2i+1 as int64, so
+// their low words are the piece's .x and .z.
+__device__ __forceinline__ Fe fe_from_row(const unsigned char* row) {
+  Fe r;
+#pragma unroll
+  for (int i = 0; i < NW; ++i) {
+    const uint4 v = reinterpret_cast<const uint4*>(row)[i];
+    r.w[i] = v.x | (v.z << 16);
+  }
+  return r;
+}
+
+__device__ __forceinline__ void fe_to_row(unsigned char* row, const Fe& a) {
+#pragma unroll
+  for (int i = 0; i < NW; ++i)
+    reinterpret_cast<uint4*>(row)[i] =
+        make_uint4(a.w[i] & 0xFFFFu, 0u, a.w[i] >> 16, 0u);
+}
+
+// Let Kernel take up to `bytes` of dynamic shared memory on the current
+// device, once per device (the launching wrapper runs on the host's hot
+// path).
+template <auto Kernel>
+inline cudaError_t allow_dynamic_smem(int bytes) {
+  static bool done[64] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (dev < 64 && done[dev])) return err;
+  err = cudaFuncSetAttribute(Kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess && dev < 64) done[dev] = true;
+  return err;
 }
 
 inline FieldParams params_from(const uint32_t* words) {

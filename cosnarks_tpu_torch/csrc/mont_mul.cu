@@ -1,29 +1,91 @@
 // K1: batched Montgomery multiplication, out = a*b*2^-256 mod p.
 //
-// Replaces _mul_call / _mul_call_lm of cosnarks_tpu/ff/pallas_mont.py. One
-// thread per element: load sixteen int64 limbs of each operand as eight
-// 32-bit words, CIOS in registers, store sixteen limbs. Bytes-bound on an
-// H100: 384 bytes cross the int64 boundary per product against ~130 IMADs.
+// Replaces _mul_call / _mul_call_lm of cosnarks_tpu/ff/pallas_mont.py.
+//
+// What bounds it on the card: bytes. 384 bytes cross the int64 limb
+// boundary per product (two 128-byte operands in, one out) against ~270
+// 32-bit multiplies, so an H100 is bytes-bound by about 7x, and the design
+// is about moving those bytes at the card's rate. A thread that loads its
+// own element as sixteen 8-byte limbs puts neighbouring threads 128 bytes
+// apart: every warp-wide access touches 32 lines for 256 useful bytes, and
+// its stores reach L2 as partial sectors (30 % of the byte bound at 2^20).
+//
+// Design: a persistent grid. Block b walks over the tiles b, b + gridDim.x,
+// ... of blockDim.x consecutive elements each (the wrapper,
+// ff/mont_kernel.py, picks the tile and the number of blocks). Both operand
+// tiles are contiguous; the block copies them into shared memory with
+// 16-byte cp.async copies, neighbouring threads on neighbouring addresses,
+// each element in a 144-byte row (field.cuh tile_stage), so each thread's
+// 16-byte reads of its own rows are free of bank conflicts. Copies are
+// double-buffered: the next tile's are in flight while this tile is
+// multiplied. Each thread packs its element's limbs into eight words, runs
+// fe_mul's CIOS in registers and writes its sixteen output limbs over its
+// operand-a row; the block then stores the tile with coalesced 16-byte
+// stores. The ragged last tile is masked.
+//
+// cp.async and not a 1-D TMA bulk copy: one bulk copy of a tile leaves its
+// 128-byte rows unpadded, where eight threads reading 16 bytes of eight rows
+// hit the same four banks; padded rows would take one bulk copy per element.
 #include "field.cuh"
 
 using namespace cosnarks;
 
-__global__ void mont_mul_kernel(const int64_t* __restrict__ a,
-                                const int64_t* __restrict__ b,
-                                int64_t* __restrict__ out, int64_t total,
-                                FieldParams F) {
-  int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  Fe x = fe_load(a + i * NL, 1);
-  Fe y = fe_load(b + i * NL, 1);
-  fe_store(out + i * NL, 1, fe_mul(x, y, F));
+namespace {
+constexpr int kMaxTile = 256;
+}
+
+__global__ void __launch_bounds__(kMaxTile)
+    mont_mul_kernel(const int64_t* __restrict__ a,
+                    const int64_t* __restrict__ b, int64_t* __restrict__ out,
+                    int64_t total, FieldParams F) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = blockDim.x;
+  const int64_t ntiles = (total + tile - 1) / tile;
+  const int buf = tile * kRowBytes;  // one operand's tile; stage s holds a
+                                     // at 2*s*buf and b right after it
+  auto count = [&](int64_t first) {  // elements in the tile from `first`
+    return static_cast<int>(total - first < tile ? total - first : tile);
+  };
+  auto stage = [&](int s, int64_t t) {
+    const int64_t first = t * tile;
+    const int n = count(first);
+    tile_stage(smem + 2 * s * buf, a + first * NL, n);
+    tile_stage(smem + (2 * s + 1) * buf, b + first * NL, n);
+  };
+
+  int64_t t = blockIdx.x;
+  if (t < ntiles) stage(0, t);
+  cp_async_commit();
+  for (int s = 0; t < ntiles; t += gridDim.x, s ^= 1) {
+    if (t + gridDim.x < ntiles) stage(s ^ 1, t + gridDim.x);
+    cp_async_commit();
+    cp_async_wait<1>();  // this tile's copies have landed
+    __syncthreads();
+    const int64_t first = t * tile;
+    const int n = count(first);
+    unsigned char* rows = smem + 2 * s * buf;
+    if (static_cast<int>(threadIdx.x) < n) {
+      unsigned char* row = rows + threadIdx.x * kRowBytes;
+      fe_to_row(row, fe_mul(fe_from_row(row), fe_from_row(row + buf), F));
+    }
+    __syncthreads();
+    tile_store(out + first * NL, rows, n);
+    __syncthreads();  // the next pass copies the tile after next here
+  }
+  cp_async_wait<0>();
 }
 
 extern "C" int cosnarks_mont_mul(const int64_t* a, const int64_t* b,
-                                 int64_t* out, int64_t total,
-                                 const uint32_t* params, void* stream) {
-  mont_mul_kernel<<<blocks_for(total), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
+                                 int64_t* out, int64_t total, int tile,
+                                 int blocks, const uint32_t* params,
+                                 void* stream) {
+  if (tile <= 0 || tile > kMaxTile || tile % 32 != 0 || blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = 4 * tile * kRowBytes;
+  const cudaError_t err =
+      allow_dynamic_smem<mont_mul_kernel>(4 * kMaxTile * kRowBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  mont_mul_kernel<<<blocks, tile, smem, static_cast<cudaStream_t>(stream)>>>(
       a, b, out, total, params_from(params));
   return static_cast<int>(cudaGetLastError());
 }

@@ -4,13 +4,23 @@ All of them compute over BN254-sized prime fields (sixteen 16-bit limbs per
 coordinate, eight 32-bit words inside the kernel) with canonical values at
 every step, so their output limbs equal the plain versions' exactly. The
 field arithmetic they share is csrc/field.cuh, the curve formulas
-csrc/point.cuh. One thread handles one point (K2, K3, K5) or one fold lane
-(K4), with intermediates in registers; K6 runs one thread block per window.
+csrc/point.cuh. A group of four threads handles one point in K2; one thread
+handles one point (K3, K5) or one fold lane (K4), with intermediates in
+registers; K6 runs one thread block per window.
 
 K2 — complete Jacobian add and double (csrc/jacobian.cu). Replaces
   `_add_call` and `_double_call` of cosnarks_tpu/ec/pallas_ec.py: add-2007-bl
   with the selects of `curve.add` for P=inf, Q=inf, P=Q, P=-Q, and
-  dbl-2009-l. An int argument picks the op.
+  dbl-2009-l. An int argument picks the op. The main path launches it on
+  one point (or Shamir's three) at a time, from `curve.scalar_mul`'s
+  256-step loop, so what bounds it is the latency of the formula's chain of
+  field products. Each point has a group of four threads: the block stages
+  its coordinates through shared memory with coalesced 16-byte copies, and
+  the group runs the formula's products layer by layer, one product per
+  lane, passing operands through shared memory between layers (five layers
+  for the add's 16 products, three for the double's 7), so the chain is 5
+  or 3 products long instead of 16 or 7. The selects are the group's,
+  uniform across its lanes.
 K3 — RCB complete projective add, mixed add (optional validity mask) and
   double (csrc/proj_op.cu). Replaces `_proj_op_call`. 3b = 9 is the same
   double/add chain as `curve._mul_b3`.
@@ -37,19 +47,22 @@ for K6 (the sum needs ~2W adds per window over W points read; its ladders do
 is 128 bytes, and moving a point op's 5-9 coordinates (K2, K3, K5) or a fold
 step's operands and dumped sum (K4) takes the card longer than their 8-16
 field products of ~260 32-bit multiplies each. In practice they run far
-above their bounds (PERF.md: K2, K3 and K5 at 6.6-10.5x on 2^14 points,
-K4 at 5.9x on level 0 and 39x on the 2560-lane projective level, K6 at
+above their bounds (PERF.md: K3 and K5 at 6.6-10.5x on 2^14 points, K4 at
+5.9x on level 0 and 39x on the 2560-lane projective level, K6 at
 167-228x): they are latency- and occupancy-bound. One thread per point or
 lane keeps ~30 field elements live (130-184 registers, nvcc
 --resource-usage in the smoke output), so few warps per SM hide the serial
 product chains; a 2560-lane level launches only 80 warps, and K6 only one
-256-thread block per window, on 132 SMs. Fewer registers per thread, or
-several threads per point, is the lever for a later PR.
+256-thread block per window, on 132 SMs. K2 gives each point a group of
+four threads against that (above); K3-K6 keep one thread per point or
+lane.
 
 Dispatch: CPU tensors take the plain versions (the formulas of
 :mod:`.curve` over :class:`PlainFqOps`); CUDA tensors launch or raise.
 Each `*_launch` wrapper counts its launches per op in `.launches[op]`
-(K6, which has one op, per bucket width W).
+(K6, which has one op, per bucket width W) and their batch sizes in
+`.sizes[(op, bucket)]` (points, fold lanes L, or windows for K6; see
+`mont_kernel.count`).
 """
 
 from __future__ import annotations
@@ -59,7 +72,8 @@ import ctypes
 import torch
 
 from .. import _build
-from ..ff.mont_kernel import check_operands, count, field_params, launch, ptr
+from ..ff.mont_kernel import (check_aligned, check_operands, count,
+                              field_params, launch, ptr)
 from . import curve
 from .ops import PlainFqOps
 
@@ -119,9 +133,12 @@ def jacobian_launch(spec, op: int, coords):
     double, 6 for add); returns the 3 output coordinates."""
     n = spec.ops.field.nlimbs
     check_operands(coords, n, coords[0].device)
+    check_aligned(coords)
     total = coords[0].shape[0]
     if any(c.shape[0] != total for c in coords):
         raise ValueError("coordinate batch sizes differ")
+    if len(coords) != (6 if op == JAC_ADD else 3):
+        raise ValueError("the add takes 6 coordinates, the double 3")
     out = [torch.empty_like(coords[0]) for _ in range(3)]
     if total == 0:
         return out
@@ -132,11 +149,12 @@ def jacobian_launch(spec, op: int, coords):
                *[ptr(a) if a is not None else None for a in args],
                *[ptr(o) for o in out], ctypes.c_int64(total),
                field_params(spec.ops.field))
-    count(jacobian_launch, op)
+    count(jacobian_launch, op, total)
     return out
 
 
 jacobian_launch.launches = {}
+jacobian_launch.sizes = {}
 
 
 def add(spec, P, Q):
@@ -197,11 +215,12 @@ def proj_launch(spec, op: int, coords, valid=None):
                ptr(valid) if valid is not None else None,
                *[ptr(o) for o in out], ctypes.c_int64(total),
                ctypes.c_int(_b3(spec)), field_params(spec.ops.field))
-    count(proj_launch, op)
+    count(proj_launch, op, total)
     return out
 
 
 proj_launch.launches = {}
+proj_launch.sizes = {}
 
 
 def proj_add(spec, P, Q):
@@ -317,11 +336,12 @@ def fold_launch(spec, q, flags, K: int, proj_q: bool):
                *[ptr(b) for b in bufs], *[ptr(x) for x in lanes],
                ctypes.c_int64(K), ctypes.c_int64(L),
                ctypes.c_int(_b3(spec)), field_params(spec.ops.field))
-    count(fold_launch, int(proj_q))
+    count(fold_launch, int(proj_q), L)
     return tuple(bufs), tuple(lanes[:3]), tuple(lanes[3:])
 
 
 fold_launch.launches = {}
+fold_launch.sizes = {}
 
 
 def level0_fold(spec, qx, qy, flags, K: int):
@@ -380,11 +400,12 @@ def madd_launch(spec, coords, valid=None):
                ptr(valid) if valid is not None else None,
                *[ptr(o) for o in out], ctypes.c_int64(total),
                field_params(spec.ops.field))
-    count(madd_launch, mode)
+    count(madd_launch, mode, total)
     return out
 
 
 madd_launch.launches = {}
+madd_launch.sizes = {}
 
 
 def madd(spec, P, Q_affine, valid=None):
@@ -479,11 +500,12 @@ def wreduce_launch(spec, buckets):
                *[ptr(x) for x in out], ptr(scratch), ctypes.c_int64(nwin),
                ctypes.c_int64(W), ctypes.c_int(_b3(spec)),
                field_params(spec.ops.field))
-    count(wreduce_launch, W)
+    count(wreduce_launch, W, nwin)
     return tuple(out)
 
 
 wreduce_launch.launches = {}
+wreduce_launch.sizes = {}
 
 
 def weighted_bucket_sum(spec, buckets):

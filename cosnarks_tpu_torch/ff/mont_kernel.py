@@ -3,26 +3,36 @@
 Replaces the Pallas kernels of cosnarks_tpu/ff/pallas_mont.py, `_mul_call`
 (row-major tiles, batches below 4096) and `_mul_call_lm` (limb-major slabs,
 batches of 4096 and more). Their split only existed to fill the TPU's
-sublanes; here one kernel serves every batch size.
-
-Kernel (csrc/mont_mul.cu): one thread per element. It packs the sixteen
-16-bit limbs of each operand into eight 32-bit words, runs a CIOS product
-with 32x32->64-bit multiplies, subtracts p once if needed and unpacks.
-R stays 2^256, so the output limbs equal `mul_plain`'s exactly.
+sublanes; here one kernel serves every batch size, from the 3 products of
+an Fq2 multiply to the 2^15-2^17 of an NTT stage or a G2 MSM step.
 
 What bounds it on the card: memory. The int64 limb boundary moves 384 bytes
-per product (two 128-byte inputs, one 128-byte output) for ~130 32-bit
-multiply instructions, so an H100 (3.35 TB/s, 132 SMs x 64 IMAD/clock) is
-bytes-bound by ~10x. The design keeps the whole multiply in registers and
-touches each byte once; narrowing the boundary is the lever left for later.
+per product (two 128-byte inputs, one 128-byte output) for ~270 32-bit
+multiplies, so an H100 (3.35 TB/s, 132 SMs x 64 IMAD/clock) is
+bytes-bound by ~7x. So the kernel's task is to move those bytes at the
+card's rate; one thread per element, loading its limbs 8 bytes at a time
+128 bytes from its neighbours', reaches 30 % of it (PERF.md).
+
+Kernel (csrc/mont_mul.cu): a persistent grid of `blocks` blocks walks over
+tiles of `tile` consecutive elements, block b taking tiles b, b + blocks,
+.... Each block copies both operand tiles into shared memory with coalesced
+16-byte cp.async copies (double-buffered, so the next tile's copies overlap
+this tile's products), each thread runs one CIOS product in registers on
+32-bit words, and the block stores the tile with coalesced 16-byte stores.
+R stays 2^256, so the output limbs equal `mul_plain`'s exactly.
+`mul_geometry` picks tile and blocks, and `mul_tiles` spells out the walk
+that the kernel makes, so a CPU test can check that it covers every element
+once.
 
 Dispatch: CPU tensors take `mul_plain`; CUDA tensors launch the kernel or
-raise. `mul.launches[0]` counts launches (see `count`).
+raise. `mul.launches[0]` counts launches and `mul.sizes` their batch sizes
+(see `count`).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -31,17 +41,28 @@ from .. import _build
 from .mont import mul_plain
 from .spec import Field
 
-__all__ = ["mul", "mul_plain", "field_params", "count"]
+__all__ = ["mul", "mul_plain", "field_params", "count", "size_bucket",
+           "mul_geometry", "mul_tiles"]
 
 _count_lock = threading.Lock()
 
 
-def count(wrapper, mode: int = 0):
-    """Add one to `wrapper.launches[mode]`. Every kernel wrapper calls this
-    right after its kernel launched, and nowhere else; the dict holds one
-    count per mode (op) of the kernel."""
+def size_bucket(total: int) -> int:
+    """The power of two at or above `total` (1 for a single item)."""
+    return 1 << max(0, total - 1).bit_length()
+
+
+def count(wrapper, mode: int, total: int):
+    """Add one to `wrapper.launches[mode]` and to
+    `wrapper.sizes[(mode, size_bucket(total))]`. Every kernel wrapper calls
+    this right after its kernel launched, and nowhere else; `launches` holds
+    one count per mode (op) of the kernel, `sizes` the histogram of the
+    launches' batch sizes (`total`: products, points, fold lanes or
+    windows)."""
     with _count_lock:
         wrapper.launches[mode] = wrapper.launches.get(mode, 0) + 1
+        key = (mode, size_bucket(total))
+        wrapper.sizes[key] = wrapper.sizes.get(key, 0) + 1
 
 
 def field_params(field: Field):
@@ -71,6 +92,14 @@ def check_operands(tensors, nlimbs: int, device: torch.device):
             raise ValueError("expected contiguous tensors")
 
 
+def check_aligned(tensors):
+    """Raise unless every tensor starts on a 16-byte boundary (the kernels
+    that copy tiles in 16-byte pieces need it)."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("expected tensors aligned to 16 bytes")
+
+
 def launch(fn, *args):
     """Call a kernel's C entry point on the current stream; raise if the
     launch reported an error."""
@@ -84,6 +113,40 @@ def ptr(t: torch.Tensor):
     return ctypes.c_void_p(t.data_ptr())
 
 
+# Elements per tile (one per thread of a block) and resident blocks per SM
+# (a block holds two stages of two tiles in 144-byte rows, 72 KB at a tile
+# of 128). scripts/torch_k1_tile_sweep.py timed tiles of 64-256 at 1-6
+# blocks per SM on an H100: 128 x 1 was the fastest or within 1.4 % of it
+# at 2^15, 2^17 and 2^20 products.
+MUL_TILE = 128
+MUL_BLOCKS_PER_SM = 1
+ELEMENT_BYTES = 16 * 8  # one element at the int64 limb boundary
+
+
+def mul_geometry(total: int, sms: int):
+    """(tile, blocks) of K1's persistent grid for `total` products on a
+    card with `sms` SMs: one block per tile up to MUL_BLOCKS_PER_SM blocks
+    per SM."""
+    ntiles = -(-total // MUL_TILE)
+    return MUL_TILE, min(ntiles, MUL_BLOCKS_PER_SM * sms)
+
+
+def mul_tiles(total: int, tile: int, blocks: int):
+    """The kernel's walk over the elements, as (block, first, count, nbytes)
+    per tile in the order each block takes them: block b takes tiles b,
+    b + blocks, ...; a tile covers `count` elements from `first` and copies
+    `nbytes` bytes per operand (the last tile is ragged)."""
+    ntiles = -(-total // tile)
+    return [(blk, t * tile, min(tile, total - t * tile),
+             min(tile, total - t * tile) * ELEMENT_BYTES)
+            for blk in range(blocks) for t in range(blk, ntiles, blocks)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def mul(field: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a*b*R^-1 mod p for canonical limb tensors of one shape."""
     if a.device.type == "cpu" and b.device.type == "cpu":
@@ -92,16 +155,20 @@ def mul(field: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"shape mismatch {tuple(a.shape)} vs "
                          f"{tuple(b.shape)}")
     check_operands((a, b), field.nlimbs, a.device)
+    check_aligned((a, b))
     out = torch.empty_like(a)
     total = a.numel() // field.nlimbs
     if total == 0:
         return out
+    tile, blocks = mul_geometry(total, sm_count(a.device.index))
     lib = _build.load("mont_mul")
     with torch.cuda.device(a.device):
         launch(lib.cosnarks_mont_mul, ptr(a), ptr(b), ptr(out),
-               ctypes.c_int64(total), field_params(field))
-    count(mul)
+               ctypes.c_int64(total), ctypes.c_int(tile),
+               ctypes.c_int(blocks), field_params(field))
+    count(mul, 0, total)
     return out
 
 
 mul.launches = {}
+mul.sizes = {}
