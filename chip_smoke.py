@@ -8,14 +8,17 @@ Phases, one JSON line each; any failure exits non-zero:
   2. hold every kernel mode against its plain PyTorch version at main-path
      shapes (exact limb equality), timed on the device beside its bound
      (the plain version with its host launch overhead): K1 at 3, 2^15,
-     2^17 and 2^20 products, K2 at 1, 3 and 2^14 points (edge lanes
-     included), K3-K6 at their proof or MSM shapes; call K5 through its
+     2^17 and 2^20 products, K2 at 1, 3 and 2^14 points, K3's four modes at
+     1, 32 and 2^14 points (edge lanes included), K4's two modes at the
+     proofs' L = 40960, 2560 and 160 fold lanes and at L = 160 on edge flag
+     patterns, K5 and K6 at their proof or MSM shapes; call K5 through its
      entry point curve.madd (a broadcast affine Q, a bool mask), and show
      that a wrapper raises on a bad CUDA input instead of falling back;
   3. the main path: a domain-2^16 synthetic zkey, then the 3-party Rep3
      Groth16 prover over run_parties, twice; every party returns the same
      proof, it verifies, and every kernel launched during the warm prove;
-     the phase line carries the launch-size histogram of each prover mode;
+     the phase line carries the launch-size histogram of each prover mode
+     and K4's launches by exact (L, K);
   3b. the 3-party Shamir (n = 3, t = 1) Groth16 prover on the same zkey,
      once (warm card and caches): the same checks, with its own counts;
   4. a 2^20-point G1 MSM at c = 15 over points [k_i]G made on the card,
@@ -24,8 +27,9 @@ Phases, one JSON line each; any failure exits non-zero:
      K4 and the K6 weighted bucket reduction on the card, Horner on the host;
      then ten pairs of it and msm(), taking turns at going first;
   5. main_path_loss: K1-K3's prover modes timed (and checked) at every
-     launch-size bucket of the two proofs, and each mode's loss per proof,
-     sum of launches x (ms - bound);
+     launch-size bucket of the two proofs, K4's at every (L, K) they
+     launched, and each mode's loss per proof, sum of launches x
+     (ms - bound);
   6. the kernel table (every mode of K1-K6 at every checked shape, each with
      its launches, the phase that counted them and its main-path loss);
      then the card's name and power limit; then
@@ -158,6 +162,7 @@ def main() -> int:
         "K2 jacobian double": (ek.jacobian_launch, ek.JAC_DOUBLE,
                                "rep3_groth16"),
         "K3 proj add": (ek.proj_launch, ek.PROJ_ADD, "rep3_groth16"),
+        "K3 proj madd": (ek.proj_launch, ek.PROJ_MADD, None),
         "K3 proj madd (masked)": (ek.proj_launch, ek.PROJ_MADD_MASKED,
                                   None),
         "K3 proj double": (ek.proj_launch, ek.PROJ_DOUBLE, "rep3_groth16"),
@@ -173,7 +178,8 @@ def main() -> int:
     def check(name, kernel_fn, plain_fn, nbytes, nfield_muls, iters,
               replaces, source, shape, mode=None, **extra):
         """Time a kernel mode at one shape beside its bound, hold it against
-        its plain version and keep its row for the kernel table."""
+        its plain version and keep its row (with `extra`) for the kernel
+        table."""
         out, ms, enqueue_ms = timed(kernel_fn, iters, queue_ahead=True)
         ref, plain_ms, _ = timed(plain_fn, 1)
         err = max_err(out, ref)
@@ -181,11 +187,11 @@ def main() -> int:
         row = {"name": name, "mode": mode or name, "shape": shape,
                "route": "cuda", "source": source, "replaces": replaces,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bms, "bound_by": by, "library_ms": None}
+               "bound_ms": bms, "bound_by": by, "library_ms": None, **extra}
         rows[name] = row
         emit({"phase": "kernel_check", **row, "iters": iters,
               "enqueue_ms": enqueue_ms,
-              "queued_within_sleep": enqueue_ms < sleep_s * 1e3, **extra})
+              "queued_within_sleep": enqueue_ms < sleep_s * 1e3})
         if err != 0:
             raise AssertionError(f"{name}: kernel differs from plain version")
 
@@ -258,72 +264,106 @@ def main() -> int:
               lambda Ps=Ps: ek.double_plain(g1, tuple(Ps)),
               6 * n * LIMB_BYTES, 7 * n, iters, K2_DOUBLE_SITE, K2_SRC,
               shape=[n, 16], mode="K2 jacobian double")
-    PP = [P[0], P[1], torch.where((lane % 8 == 3)[:, None],
-                                  torch.zeros_like(P[2]), P[2])]
-    PP[0] = torch.where((lane % 8 == 3)[:, None], torch.zeros_like(P[0]),
-                        PP[0])
-    PP[1] = torch.where((lane % 8 == 3)[:, None],
-                        mont.broadcast_one(F, (n2,), device=dev), PP[1])
-    PP = [x.contiguous() for x in PP]  # projective identity lanes (0:1:0)
+    # K3 in every mode at 1 point, at 32 (lanes 0-31: every edge lane) and
+    # at 2^14, on projective points: (0 : 1 : 0) on P's lanes 3 mod 8 and
+    # Q's lanes 4 mod 8, P = Q on lanes 1 mod 8, P = -Q on lanes 2 mod 8;
+    # the masked madd drops lanes 0 mod 4, so its 1-point case is also run
+    # on lane 1 (valid, P = Q), where the madd's layers run
+    one2 = mont.broadcast_one(F, (n2,), device=dev)
+    ident = (torch.zeros_like(one2), one2, torch.zeros_like(one2))
+    PP = [torch.where((lane % 8 == 3)[:, None], i, x).contiguous()
+          for x, i in zip(P, ident)]
+    QQ = [torch.where((lane % 8 == 4)[:, None], i, x).contiguous()
+          for x, i in zip(Q, ident)]
     valid = (lane % 4 != 0).to(torch.int64).contiguous()
-    check("K3 proj add",
-          lambda: ek.proj_launch(g1, ek.PROJ_ADD, PP + Q),
-          lambda: ek.proj_add_plain(g1, tuple(PP), tuple(Q)),
-          9 * n2 * LIMB_BYTES, 12 * n2, 20,
-          "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, add)",
-          "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n2, 16])
-    check("K3 proj madd (masked)",
-          lambda: ek.proj_launch(g1, ek.PROJ_MADD_MASKED, PP + Q[:2],
-                                 valid),
-          lambda: ek.proj_madd_plain(g1, tuple(PP), tuple(Q[:2]),
-                                     valid != 0),
-          8 * n2 * LIMB_BYTES + n2 * 8, 11 * int(valid.sum()), 20,
-          "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, madd)",
-          "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n2, 16])
-    check("K3 proj double",
-          lambda: ek.proj_launch(g1, ek.PROJ_DOUBLE, PP),
-          lambda: ek.proj_double_plain(g1, tuple(PP)),
-          6 * n2 * LIMB_BYTES, 8 * n2, 20,
-          "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, double)",
-          "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n2, 16])
+    k3_site = "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, {})"
+    k3_modes = (  # name, op, formula, coordinates moved, field products
+        ("K3 proj add", ek.PROJ_ADD, "add", 9, 12),
+        ("K3 proj madd", ek.PROJ_MADD, "madd", 8, 11),
+        ("K3 proj madd (masked)", ek.PROJ_MADD_MASKED, "madd", 8, 11),
+        ("K3 proj double", ek.PROJ_DOUBLE, "double", 6, 8),
+    )
+    for name, op, formula, ncoords, nmuls in k3_modes:
+        masked = op == ek.PROJ_MADD_MASKED
+        shapes = [("1", slice(0, 1), 200), ("32", slice(0, 32), 200),
+                  ("2^14", slice(0, n2), 20)]
+        if masked:
+            shapes.insert(1, ("1 (valid)", slice(1, 2), 200))
+        for label, sl, iters in shapes:
+            Ps, Qs, vs = [x[sl] for x in PP], [x[sl] for x in QQ], valid[sl]
+            n = Ps[0].shape[0]
+            vm = vs if masked else None
+            ins = Ps + (Qs if op == ek.PROJ_ADD
+                        else [] if op == ek.PROJ_DOUBLE else Qs[:2])
+            plain = {
+                "add": lambda Ps=Ps, Qs=Qs: ek.proj_add_plain(
+                    g1, tuple(Ps), tuple(Qs)),
+                "madd": lambda Ps=Ps, Qs=Qs, vm=vm: ek.proj_madd_plain(
+                    g1, tuple(Ps), tuple(Qs[:2]),
+                    None if vm is None else vm != 0),
+                "double": lambda Ps=Ps: ek.proj_double_plain(g1, tuple(Ps)),
+            }[formula]
+            check(f"{name} {label}",
+                  lambda op=op, ins=ins, vm=vm: ek.proj_launch(g1, op, ins,
+                                                               vm),
+                  plain,
+                  ncoords * n * LIMB_BYTES + (n * 8 if masked else 0),
+                  nmuls * (int(vs.sum()) if masked else n), iters,
+                  k3_site.format(formula),
+                  "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n, 16],
+                  mode=name)
 
-    # K4: level 0 at the 2^16 / c = 13 shape (20 windows x 2048 chunks),
-    # projective at its level-1 shape (L = 2560)
+    # K4 in both modes at the proofs' lane counts at domain 2^16 (c = 13:
+    # 20 windows x 2048, 128 and 8 chunks), and at L = 160 on edge flag
+    # patterns
     K = 32
 
-    def fold_flags(L):
+    def fold_flags(L, K, pattern=None):
         step = torch.arange(K, device=dev)[:, None]
         lanes = torch.arange(L, device=dev)[None, :]
         changed = ((step * 7 + lanes) % 5 == 0) & (step > 0)
         valid = (step + lanes) % 11 != 0
         save = changed & ((step + lanes) % 3 == 0)
+        if pattern == "all changed":
+            changed = torch.ones_like(changed)
+        elif pattern == "all invalid":
+            valid = torch.zeros_like(valid)
+        elif pattern == "save-prefix on step 0":
+            save = save | (step == 0)
         flags = (changed.to(torch.int64) | (valid.to(torch.int64) << 1)
                  | (save.to(torch.int64) << 2))
         return flags.contiguous(), changed, valid
 
-    L0 = 20 * 2048
-    fl0, ch0, va0 = fold_flags(L0)
-    qx0 = rand_fe(K, L0).permute(2, 0, 1).contiguous()  # (16, K, L)
-    qy0 = rand_fe(K, L0).permute(2, 0, 1).contiguous()
-    pk0 = [(q[0::2] | (q[1::2] << 16)).contiguous() for q in (qx0, qy0)]
-    n_madd = int((~ch0 & va0).sum())
-    check("K4 fold level 0",
-          lambda: ek.fold_launch(g1, pk0, fl0, K, proj_q=False),
-          lambda: ek.fold_plain(g1, (qx0, qy0), fl0, K, proj_q=False),
-          (2 * 8 * K * L0 + K * L0 + 3 * 16 * K * L0 + 6 * 16 * L0) * 8,
-          11 * n_madd, 5,
-          "cosnarks_tpu/ec/pallas_ec.py:340 (_level0_call, proj_q=False)",
-          "cosnarks_tpu_torch/csrc/msm_fold.cu", shape=[K, L0])
-    L1 = 2560
-    fl1, ch1, _ = fold_flags(L1)
-    q1 = [rand_fe(K, L1).permute(2, 0, 1).contiguous() for _ in range(3)]
-    check("K4 fold projective",
-          lambda: ek.fold_launch(g1, q1, fl1, K, proj_q=True),
-          lambda: ek.fold_plain(g1, tuple(q1), fl1, K, proj_q=True),
-          (3 * 16 * K * L1 + K * L1 + 3 * 16 * K * L1 + 6 * 16 * L1) * 8,
-          12 * int((~ch1).sum()), 20,
-          "cosnarks_tpu/ec/pallas_ec.py:340 (_level0_call, proj_q=True)",
-          "cosnarks_tpu_torch/csrc/msm_fold.cu", shape=[K, L1])
+    def fold_case(L, proj_q, K=K, pattern=None):
+        """K4 on random operands: (kernel_fn, plain_fn, bytes, field
+        products); level 0 takes its operands packed."""
+        fl, ch, va = fold_flags(L, K, pattern)
+        q = [rand_fe(K, L).permute(2, 0, 1).contiguous()  # (16, K, L)
+             for _ in range(3 if proj_q else 2)]
+        qk = q if proj_q else [(c[0::2] | (c[1::2] << 16)).contiguous()
+                               for c in q]
+        nmuls = (12 * int((~ch).sum()) if proj_q
+                 else 11 * int((~ch & va).sum()))
+        nbytes = (sum(c.numel() for c in qk) + K * L + 3 * 16 * K * L
+                  + 6 * 16 * L) * 8
+        return (lambda: ek.fold_launch(g1, qk, fl, K, proj_q),
+                lambda: ek.fold_plain(g1, tuple(q), fl, K, proj_q),
+                nbytes, nmuls)
+
+    for proj_q, name in ((False, "K4 fold level 0"),
+                         (True, "K4 fold projective")):
+        for L, pattern, iters in ((40960, None, 5), (2560, None, 20),
+                                  (160, None, 20), (160, "all changed", 20),
+                                  (160, "all invalid", 20),
+                                  (160, "save-prefix on step 0", 20)):
+            kernel_fn, plain_fn, nbytes, nmuls = fold_case(L, proj_q,
+                                                           pattern=pattern)
+            check(f"{name} L={L}" + (f" ({pattern})" if pattern else ""),
+                  kernel_fn, plain_fn, nbytes, nmuls, iters,
+                  f"cosnarks_tpu/ec/pallas_ec.py:340 (_level0_call, "
+                  f"proj_q={proj_q})", "cosnarks_tpu_torch/csrc/msm_fold.cu",
+                  shape=[K, L], mode=name, flags=pattern or "smoke")
+            del kernel_fn, plain_fn
 
     # K5 at 2^14 points: Jacobian P with P = Q (X1 = x2 Z1^2, Y1 = y2 Z1^3)
     # on lanes 1 mod 8, P = -Q on lanes 2 mod 8, P = inf on lanes 3 mod 8;
@@ -411,7 +451,7 @@ def main() -> int:
     if len(refused) != 3:
         raise AssertionError("a kernel wrapper accepted a bad CUDA input")
     emit({"phase": "wrapper_refuses_bad_input", "raised": refused})
-    del a, b, P, Q, PP, qx0, qy0, pk0, q1
+    del a, b, P, Q, PP, QQ
     torch.cuda.empty_cache()
     counters = (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
                 ek.fold_launch, ek.madd_launch, ek.wreduce_launch)
@@ -420,6 +460,7 @@ def main() -> int:
         for c in counters:
             c.launches.clear()
             c.sizes.clear()
+        ek.fold_launch.shapes.clear()
 
     def read_counts():
         return {c.__qualname__: dict(c.launches) for c in counters}
@@ -433,7 +474,15 @@ def main() -> int:
                 for name, (fn, mode, phase) in modes.items()
                 if phase == "rep3_groth16"}
 
-    counts_by_phase, sizes_by_phase = {}, {}
+    counts_by_phase, sizes_by_phase, shapes_by_phase = {}, {}, {}
+
+    def read_shapes():
+        """K4's launches by exact shape: {(mode, L, K): launches}."""
+        return dict(ek.fold_launch.shapes)
+
+    def shape_names(shapes):
+        return {f"{'projective' if m else 'level 0'} L={L} K={k}": n
+                for (m, L, k), n in sorted(shapes.items())}
 
     def require_launched(phase, names):
         """Fail unless every mode in `names` launched in `phase`'s run."""
@@ -483,6 +532,7 @@ def main() -> int:
     res, t_warm = run_prove(rep3_party)
     counts_by_phase["rep3_groth16"] = by_op = read_counts()
     sizes_by_phase["rep3_groth16"] = sizes = read_sizes()
+    shapes_by_phase["rep3_groth16"] = shapes = read_shapes()
     require_launched("rep3_groth16", prover_modes)
     emit({"phase": "rep3_groth16", "domain": zkey.domain_size,
           "zkey_seconds": t_zkey, "first_prove_s": t_first,
@@ -490,7 +540,8 @@ def main() -> int:
           "verified": True,
           "phase_seconds_by_party": [r[1] for r in res],
           "launches": {k: sum(v.values()) for k, v in by_op.items()},
-          "launches_by_mode": by_op, "launch_sizes": sizes})
+          "launches_by_mode": by_op, "launch_sizes": sizes,
+          "fold_shapes": shape_names(shapes)})
     del shares, res
 
     # ---- phase 3b: 3-party Shamir (n = 3, t = 1) on the same zkey --------
@@ -506,12 +557,14 @@ def main() -> int:
     res, t_shamir = run_prove(shamir_party)
     counts_by_phase["shamir_groth16"] = by_op = read_counts()
     sizes_by_phase["shamir_groth16"] = sizes = read_sizes()
+    shapes_by_phase["shamir_groth16"] = shapes = read_shapes()
     require_launched("shamir_groth16", prover_modes)
     emit({"phase": "shamir_groth16", "domain": zkey.domain_size,
           "n": 3, "t": 1, "prove_s": t_shamir, "verified": True,
           "phase_seconds_by_party": [r[1] for r in res],
           "launches": {k: sum(v.values()) for k, v in by_op.items()},
-          "launches_by_mode": by_op, "launch_sizes": sizes})
+          "launches_by_mode": by_op, "launch_sizes": sizes,
+          "fold_shapes": shape_names(shapes)})
     del zkey, sh_shares, res
     torch.cuda.empty_cache()
 
@@ -593,9 +646,10 @@ def main() -> int:
     # ---- phase 5: the proofs' loss, launch size by launch size -----------
     # Each K1-K3 prover mode is timed at every size bucket at which the warm
     # Rep3 or the Shamir proof launched it (random canonical operands,
-    # ordinary points), held against its plain version, and its loss per
-    # proof summed as launches x (ms - bound_ms), a bucket at or below its
-    # bound adding 0
+    # ordinary points), and each K4 mode at every exact (L, K) they launched
+    # (random operands, phase 2's flags), held against its plain version,
+    # and its loss per proof summed as launches x (ms - bound_ms), a bucket
+    # at or below its bound adding 0
     def case(launch, plain, ncoords, nout, field_muls):
         def make(n):
             c = [rand_fe(n) for _ in range(ncoords)]
@@ -641,6 +695,27 @@ def main() -> int:
                             "launches": launches})
             for ph in proofs:
                 loss[ph][name] += launches[ph] * max(0.0, ms - bms)
+    fold_modes = {0: "K4 fold level 0", 1: "K4 fold projective"}
+    for ph in proofs:
+        loss[ph].update(dict.fromkeys(fold_modes.values(), 0.0))
+    for m, L, k in sorted({key for ph in proofs
+                           for key in shapes_by_phase[ph]}):
+        name = fold_modes[m]
+        kernel_fn, plain_fn, nbytes, nfield_muls = fold_case(L, bool(m), K=k)
+        out, ms, enqueue_ms = timed(kernel_fn, 5 if L > 4096 else 20,
+                                    queue_ahead=True)
+        if max_err(out, plain_fn()) != 0:
+            raise AssertionError(f"{name} at L = {L}: kernel differs from "
+                                 "plain version")
+        bms, by = bound(nbytes, nfield_muls * MULS_PER_FIELD_MUL)
+        launches = {ph: shapes_by_phase[ph].get((m, L, k), 0)
+                    for ph in proofs}
+        buckets.append({"mode": name, "L": L, "K": k, "ms": ms,
+                        "bound_ms": bms, "bound_by": by, "max_abs_err": 0,
+                        "enqueue_ms": enqueue_ms, "launches": launches})
+        for ph in proofs:
+            loss[ph][name] += launches[ph] * max(0.0, ms - bms)
+        del kernel_fn, plain_fn, out
     emit({"phase": "main_path_loss", "buckets": buckets, "loss_ms": loss})
 
     # ---- phase 6: kernel table, card, result -----------------------------
@@ -653,6 +728,11 @@ def main() -> int:
             row["launches_at_shape"] = sizes_by_phase["rep3_groth16"][
                 row["mode"]].get(str(mont_kernel.size_bucket(
                     row["shape"][0])), 0)
+            row["main_path_loss_ms"] = loss["rep3_groth16"][row["mode"]]
+        elif row["mode"] in fold_modes.values():
+            k, L = row["shape"]
+            row["launches_at_shape"] = shapes_by_phase["rep3_groth16"].get(
+                (mode, L, k), 0) if row["flags"] == "smoke" else 0
             row["main_path_loss_ms"] = loss["rep3_groth16"][row["mode"]]
         else:
             row["main_path_loss_ms"] = row["launches"] * max(

@@ -18,6 +18,7 @@ import ctypes
 import fcntl
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -41,9 +42,10 @@ SIGNATURES = {
     "jacobian": ("cosnarks_jacobian",
                  [_INT] + [_P] * 9 + [_I64, _PARAMS, _P]),
     "proj_op": ("cosnarks_proj_op",
-                [_INT] + [_P] * 10 + [_I64, _INT, _PARAMS, _P]),
+                [_INT] + [_P] * 10 + [_I64] + [_INT] * 4 + [_PARAMS, _P]),
     "msm_fold": ("cosnarks_msm_fold",
-                 [_INT] + [_P] * 13 + [_I64, _I64, _INT, _PARAMS, _P]),
+                 [_INT] + [_P] * 13 + [_I64, _I64] + [_INT] * 4
+                 + [_PARAMS, _P]),
     "jacobian_madd": ("cosnarks_jacobian_madd",
                       [_INT] + [_P] * 9 + [_I64, _PARAMS, _P]),
     "wreduce": ("cosnarks_wreduce",
@@ -137,9 +139,33 @@ def load(name: str):
     return _libs[name]
 
 
+def _demangle(names):
+    """Kernel entry names as cu++filt (beside nvcc) prints them, without
+    parameter types."""
+    if not names:
+        return []
+    filt = Path(nvcc_path()).with_name("cu++filt")
+    res = subprocess.run([str(filt), "-p", *names], capture_output=True,
+                         text=True, check=True)
+    return res.stdout.splitlines()
+
+
 def resource_usage(name: str) -> str:
-    """nvcc --resource-usage lines (registers, spills) of kernel `name`."""
+    """Registers and stack of each kernel entry in kernel `name`'s build
+    (nvcc --resource-usage)."""
     log = build_dir() / f"{name}.log"
     lines = log.read_text().splitlines() if log.exists() else []
-    return " | ".join(ln.strip() for ln in lines
-                      if "registers" in ln or "spill" in ln)
+    out, entry, frame = [], name, ""
+    for ln in lines:
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            entry = m.group(1)
+        elif "stack frame" in ln:
+            frame = ln.strip()
+        elif "registers" in ln:
+            regs = re.search(r"Used (\d+) registers", ln)
+            out.append((entry, f"{regs.group(1) if regs else ln.strip()} "
+                        f"registers, {frame}"))
+    mangled = sorted({e for e, _ in out if e != name})
+    label = dict(zip(mangled, _demangle(mangled)))
+    return " | ".join(f"{label.get(e, e)}: {usage}" for e, usage in out)

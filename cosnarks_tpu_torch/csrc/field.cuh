@@ -7,9 +7,9 @@
 // equal the plain PyTorch versions limb for limb.
 //
 // Two ways across the boundary. fe_load / fe_store read and write an
-// element's limbs from the thread that owns it (K3-K6): neighbouring threads
+// element's limbs from the thread that owns it (K5, K6): neighbouring threads
 // are 128 bytes apart, so a warp's 8-byte access touches 32 lines for 256
-// useful bytes. The tile helpers at the end (K1, K2) move a block's
+// useful bytes. The tile helpers at the end (K1-K3) move a block's
 // consecutive elements through shared memory instead: 16-byte cp.async
 // copies and 16-byte stores with neighbouring threads on neighbouring
 // addresses, each element in a row padded to 144 bytes so that eight
@@ -45,15 +45,6 @@ __device__ __forceinline__ Fe fe_load(const int64_t* __restrict__ src,
     uint32_t hi = static_cast<uint32_t>(src[(2 * i + 1) * stride]);
     r.w[i] = lo | (hi << 16);
   }
-  return r;
-}
-
-// Element whose word i (limbs 2i and 2i+1 packed) sits at src[i * stride].
-__device__ __forceinline__ Fe fe_load_packed(const int64_t* __restrict__ src,
-                                             int64_t stride) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) r.w[i] = static_cast<uint32_t>(src[i * stride]);
   return r;
 }
 
@@ -195,7 +186,7 @@ inline unsigned int blocks_for(int64_t total) {
   return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
 }
 
-// ---- tiles staged through shared memory (K1, K2) --------------------------
+// ---- tiles staged through shared memory (K1-K4) --------------------------
 
 constexpr int kPieces = NL * 8 / 16;      // 16-byte pieces per element: 8
 constexpr int kRowBytes = NL * 8 + 16;    // padded shared-memory row: 144
@@ -203,6 +194,14 @@ constexpr int kRowBytes = NL * 8 + 16;    // padded shared-memory row: 144
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// An 8-byte copy (through L1; cp.async.cg takes 16 bytes only).
+__device__ __forceinline__ void cp_async8(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
                "l"(gmem)
                : "memory");
 }

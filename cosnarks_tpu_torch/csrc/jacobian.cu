@@ -32,6 +32,7 @@
 // its branch is uniform) and computes point.cuh's values, so the limbs are
 // the same. Lane l < 3 writes output coordinate l over the point's P rows,
 // and the block stores the rows with coalesced 16-byte stores.
+#include "group.cuh"
 #include "point.cuh"
 
 using namespace cosnarks;
@@ -54,38 +55,6 @@ enum : int {
 // The double's products reuse the add's last slots (a P = Q add branches
 // to the double before it writes them).
 enum : int { DA = WW, DB, DYZ, DC, DT, DF, DEDX };
-
-// Four slot indices, one per lane, packed in a word.
-__device__ __forceinline__ int by_lane(int l, int s0, int s1, int s2,
-                                       int s3) {
-  const uint32_t table = s0 | (s1 << 8) | (s2 << 16) | (s3 << 24);
-  return (table >> (8 * l)) & 0xFF;
-}
-
-__device__ __forceinline__ Fe get(const uint32_t* S, int i) {
-  const uint4* p = reinterpret_cast<const uint4*>(S + i * NW);
-  const uint4 lo = p[0], hi = p[1];
-  Fe r;
-  r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
-  r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
-  return r;
-}
-
-__device__ __forceinline__ void put(uint32_t* S, int i, const Fe& a) {
-  uint4* p = reinterpret_cast<uint4*>(S + i * NW);
-  p[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
-  p[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
-}
-
-// a, b or c for lanes 0, 1 and 2 (lane 3 takes c), word by word.
-__device__ __forceinline__ Fe pick(int l, const Fe& a, const Fe& b,
-                                   const Fe& c) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NW; ++i)
-    r.w[i] = l == 0 ? a.w[i] : (l == 1 ? b.w[i] : c.w[i]);
-  return r;
-}
 
 // dbl-2009-l (jac_double) on the point in slots (x, y, z); returns output
 // coordinate l for lanes 0-2.
@@ -184,7 +153,7 @@ __global__ void __launch_bounds__(kBlock, 4)
   __syncthreads();
 
   const int p = threadIdx.x / kGroup, l = threadIdx.x % kGroup;
-  const unsigned mask = 0xFu << (threadIdx.x & 31 & ~(kGroup - 1));
+  const unsigned mask = group_mask<kGroup>(threadIdx.x);
   Fe R;
   if (p < n) {
     uint32_t* S = reinterpret_cast<uint32_t*>(smem + kRowsBytes) +

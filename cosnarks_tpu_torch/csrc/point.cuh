@@ -1,8 +1,8 @@
-// Curve formulas (short Weierstrass, a = 0) over field.cuh, shared by the
-// point kernels. They follow cosnarks_tpu/ec/curve.py step for step:
-// Jacobian dbl-2009-l, complete add-2007-bl and mixed add madd-2007-bl with
-// their selects, and the Renes-Costello-Batina complete projective add /
-// mixed add / double.
+// Curve formulas (short Weierstrass, a = 0) over field.cuh, one thread per
+// point, shared by the point kernels. They follow cosnarks_tpu/ec/curve.py
+// step for step: Jacobian dbl-2009-l, complete add-2007-bl and mixed add
+// madd-2007-bl with their selects, and the Renes-Costello-Batina complete
+// projective add / double (K6; rcb_group.cuh runs RCB on groups of threads).
 #pragma once
 
 #include "field.cuh"
@@ -144,29 +144,6 @@ __device__ __noinline__ Pt proj_add(const Pt& P, const Pt& Q, int b3,
   R.x = fe_sub(fe_mul(t3, t1, F), fe_mul(t4, y, F), F);
   R.y = fe_add(fe_mul(t1, z, F), fe_mul(y, t0, F), F);
   R.z = fe_add(fe_mul(z, t4, F), fe_mul(t0, t3, F), F);
-  return R;
-}
-
-// RCB complete projective mixed add, Z2 = 1 (curve.proj_madd, alg 8).
-__device__ __noinline__ Pt proj_madd(const Pt& P, const Fe& x2, const Fe& y2,
-                                     int b3, const FieldParams& F) {
-  Fe t0 = fe_mul(P.x, x2, F);
-  Fe t1 = fe_mul(P.y, y2, F);
-  Fe s3 = fe_mul(fe_add(P.x, P.y, F), fe_add(x2, y2, F), F);
-  Fe u = fe_mul(x2, P.z, F);
-  Fe v = fe_mul(y2, P.z, F);
-  Fe t3 = fe_sub(s3, fe_add(t0, t1, F), F);
-  Fe t4 = fe_add(u, P.x, F);
-  Fe t5 = fe_add(v, P.y, F);
-  t0 = fe_add(fe_dbl(t0, F), t0, F);
-  Fe t2 = mul_b3(P.z, b3, F);
-  Fe z = fe_add(t1, t2, F);
-  t1 = fe_sub(t1, t2, F);
-  Fe y = mul_b3(t4, b3, F);
-  Pt R;
-  R.x = fe_sub(fe_mul(t3, t1, F), fe_mul(t5, y, F), F);
-  R.y = fe_add(fe_mul(t1, z, F), fe_mul(y, t0, F), F);
-  R.z = fe_add(fe_mul(z, t5, F), fe_mul(t0, t3, F), F);
   return R;
 }
 

@@ -4,9 +4,11 @@ All of them compute over BN254-sized prime fields (sixteen 16-bit limbs per
 coordinate, eight 32-bit words inside the kernel) with canonical values at
 every step, so their output limbs equal the plain versions' exactly. The
 field arithmetic they share is csrc/field.cuh, the curve formulas
-csrc/point.cuh. A group of four threads handles one point in K2; one thread
-handles one point (K3, K5) or one fold lane (K4), with intermediates in
-registers; K6 runs one thread block per window.
+csrc/point.cuh. K2, K3 and K4 give each point (or fold lane) a group of
+threads that runs the formula's field products in layers, one product per
+lane, with operands passed through shared-memory slots (csrc/group.cuh);
+K5 gives each point one thread, with intermediates in registers; K6 runs
+one thread block per window.
 
 K2 — complete Jacobian add and double (csrc/jacobian.cu). Replaces
   `_add_call` and `_double_call` of cosnarks_tpu/ec/pallas_ec.py: add-2007-bl
@@ -23,15 +25,26 @@ K2 — complete Jacobian add and double (csrc/jacobian.cu). Replaces
   uniform across its lanes.
 K3 — RCB complete projective add, mixed add (optional validity mask) and
   double (csrc/proj_op.cu). Replaces `_proj_op_call`. 3b = 9 is the same
-  double/add chain as `curve._mul_b3`.
+  double/add chain as `curve._mul_b3`. The main path launches it mostly on
+  1-32 points (the Horner combine, the last fold levels), so it is
+  latency-bound like K2. Each point has a group of 2-8 threads
+  (`proj_geometry`, by batch size); the block stages the coordinates as K2
+  does, and the group runs the formula in the layers of `RCB_SCHEDULE`
+  (csrc/rcb_group.cuh):
+  2, 2 and 3 products deep for the add, the madd and the double instead of
+  12, 11 and 8. RCB is complete: identity, P = Q and P = -Q take the same
+  layers.
 K4 — the MSM bucket fold (csrc/msm_fold.cu). Replaces `_level0_call` in
   both modes: level 0 (affine operands packed two limbs per word, RCB mixed
   add) and the later levels (projective boundary-stream operands, RCB add).
   On the TPU the sequential grid axis carried `run` and `prefix` in VMEM
-  scratch; Hopper blocks run in no order, so each lane is one thread that
-  loops over the K steps with both in registers, writing the pre-update
-  running sum to buf[:, t, lane] every step. Lanes are contiguous in L, so
-  neighbouring threads read and write neighbouring words.
+  scratch; here each fold lane has a group of 2 or 8 threads
+  (`fold_geometry`, by lane count) that loops over the K steps with both in its shared-memory
+  slots and runs each step's RCB add or madd in the layers of
+  `RCB_SCHEDULE`, so a step is 2 products deep. The block copies step
+  t + 1's operands and flags into shared memory while step t computes, and
+  writes the pre-update running sum to buf[:, t, lane] with neighbouring
+  threads on neighbouring words (lanes are contiguous in L).
 K5 — complete Jacobian + affine mixed add, optional validity mask
   (csrc/jacobian_madd.cu). Replaces `_madd_call`: madd-2007-bl with the
   selects of `curve.madd` (P=-Q -> inf, P=Q -> double, P=inf -> (x2, y2, 1),
@@ -47,15 +60,13 @@ for K6 (the sum needs ~2W adds per window over W points read; its ladders do
 is 128 bytes, and moving a point op's 5-9 coordinates (K2, K3, K5) or a fold
 step's operands and dumped sum (K4) takes the card longer than their 8-16
 field products of ~260 32-bit multiplies each. In practice they run far
-above their bounds (PERF.md: K3 and K5 at 6.6-10.5x on 2^14 points, K4 at
-5.9x on level 0 and 39x on the 2560-lane projective level, K6 at
-167-228x): they are latency- and occupancy-bound. One thread per point or
-lane keeps ~30 field elements live (130-184 registers, nvcc
---resource-usage in the smoke output), so few warps per SM hide the serial
-product chains; a 2560-lane level launches only 80 warps, and K6 only one
-256-thread block per window, on 132 SMs. K2 gives each point a group of
-four threads against that (above); K3-K6 keep one thread per point or
-lane.
+above their bounds (PERF.md's kernel table): they are latency- and
+occupancy-bound. One thread per point or lane runs the formula's products
+as one serial chain and keeps ~30 field elements live (130-184 registers,
+nvcc --resource-usage in the smoke output), so few warps per SM hide the
+chains; K2-K4's groups of threads cut the chain to the formula's depth in
+layers, while K5 keeps one thread per point and K6 one 256-thread block per
+window on 132 SMs.
 
 Dispatch: CPU tensors take the plain versions (the formulas of
 :mod:`.curve` over :class:`PlainFqOps`); CUDA tensors launch or raise.
@@ -175,6 +186,90 @@ def double(spec, P):
 
 
 # --------------------------------------------------------------------------
+# K3 and K4: RCB formulas on groups of threads
+# --------------------------------------------------------------------------
+
+# The RCB formulas as csrc/rcb_group.cuh runs them on a group of threads per
+# point, for each op its steps in order. A tuple is a layer of independent
+# products (name, a, b): product k of the layer is computed by lane k mod G
+# as a * b. A dict holds the sums that every lane computes between layers.
+# "out" gives the output coordinates (X3, Y3, Z3). Operands, sums and
+# outputs are linear combinations "c*name + ...", c an integer or b3 (3b);
+# every value is canonical, so the order of the additions does not change a
+# limb. The masked madd is the madd with P kept where `valid` is False.
+RCB_SCHEDULE = {
+    "add": {
+        "in": ("X1", "Y1", "Z1", "X2", "Y2", "Z2"),
+        "steps": (
+            (("t0", "X1", "X2"), ("t1", "Y1", "Y2"), ("t2", "Z1", "Z2"),
+             ("s3", "X1 + Y1", "X2 + Y2"), ("s4", "Y1 + Z1", "Y2 + Z2"),
+             ("s5", "X1 + Z1", "X2 + Z2")),
+            {"t3": "s3 - t0 - t1", "t4": "s4 - t1 - t2",
+             "y": "b3*s5 - b3*t0 - b3*t2", "t0'": "3*t0",
+             "z": "t1 + b3*t2", "t1'": "t1 - b3*t2"},
+            (("A", "t4", "y"), ("B", "t3", "t1'"), ("C", "y", "t0'"),
+             ("D", "t1'", "z"), ("E", "t0'", "t3"), ("F", "z", "t4")),
+        ),
+        "out": ("B - A", "D + C", "F + E"),
+    },
+    "madd": {
+        "in": ("X1", "Y1", "Z1", "x2", "y2"),
+        "steps": (
+            (("t0", "X1", "x2"), ("t1", "Y1", "y2"),
+             ("s3", "X1 + Y1", "x2 + y2"), ("u", "Z1", "x2"),
+             ("v", "Z1", "y2")),
+            {"t3": "s3 - t0 - t1", "t5": "v + Y1", "y": "b3*u + b3*X1",
+             "t0'": "3*t0", "z": "t1 + b3*Z1", "t1'": "t1 - b3*Z1"},
+            (("A", "t5", "y"), ("B", "t3", "t1'"), ("C", "y", "t0'"),
+             ("D", "t1'", "z"), ("E", "t0'", "t3"), ("F", "z", "t5")),
+        ),
+        "out": ("B - A", "D + C", "F + E"),
+    },
+    "double": {
+        "in": ("X", "Y", "Z"),
+        "steps": (
+            (("t0", "Y", "Y"), ("t1", "Y", "Z"), ("t2", "Z", "Z"),
+             ("xy", "X", "Y")),
+            {"z3": "8*t0", "t2'": "b3*t2"},
+            (("x3", "t2'", "z3"), ("Z3", "t1", "z3")),
+            {"t0'": "t0 - 3*t2'", "y3": "t0 + t2'"},
+            (("Y3", "t0'", "y3"), ("X3", "t0'", "xy")),
+        ),
+        "out": ("2*X3", "x3 + Y3", "Z3"),
+    },
+}
+
+# Launch geometry: (threads per point or fold lane, threads per block).
+# scripts/torch_rcb_group_sweep.py timed groups of 2, 4 and 8 in blocks of
+# 64-256 threads at 1-2^17 points and 160-53248 fold lanes on an H100
+# (PERF.md). Up to GROUP_WIDE_MAX items a launch is latency-bound and 8
+# threads an item, the shortest chain, was the fastest or within 4 % of it
+# (but K3's double at 4096 points, 13 % behind 4); above it the card is
+# full and fewer redundant additions per product win: 2 threads an item (4
+# for K3's add, the faster of the two for it). K4 is built for groups of 2
+# and 8 only, the two this table picks; K3 for 2, 4 and 8.
+GROUP_WIDE_MAX = 4096
+PROJ_GEOMETRY = {"latency": (8, 64), "add": (4, 128), "other": (2, 64)}
+FOLD_GEOMETRY = {"latency": (8, 128), "throughput": (2, 128)}
+
+
+def proj_geometry(total: int, op: int):
+    """(group, threads, blocks) of K3's op over `total` points: a group of
+    `group` threads per point, threads // group points per block."""
+    group, threads = PROJ_GEOMETRY[
+        "latency" if total <= GROUP_WIDE_MAX
+        else "add" if op == PROJ_ADD else "other"]
+    return group, threads, -(-total // (threads // group))
+
+
+def fold_geometry(L: int):
+    """(group, threads, blocks) of K4 over L fold lanes (either mode)."""
+    group, threads = FOLD_GEOMETRY[
+        "latency" if L <= GROUP_WIDE_MAX else "throughput"]
+    return group, threads, -(-L // (threads // group))
+
+
+# --------------------------------------------------------------------------
 # K3: RCB projective add / mixed add / double
 # --------------------------------------------------------------------------
 
@@ -198,6 +293,7 @@ def proj_launch(spec, op: int, coords, valid=None):
     n = spec.ops.field.nlimbs
     device = coords[0].device
     check_operands(coords, n, device)
+    check_aligned(coords)
     total = coords[0].shape[0]
     if any(c.shape[0] != total for c in coords):
         raise ValueError("coordinate batch sizes differ")
@@ -208,13 +304,16 @@ def proj_launch(spec, op: int, coords, valid=None):
     if total == 0:
         return out
     args = list(coords) + [None] * (6 - len(coords))
+    group, threads, blocks = proj_geometry(total, op)
     lib = _build.load("proj_op")
     with torch.cuda.device(device):
         launch(lib.cosnarks_proj_op, ctypes.c_int(op),
                *[ptr(a) if a is not None else None for a in args],
                ptr(valid) if valid is not None else None,
                *[ptr(o) for o in out], ctypes.c_int64(total),
-               ctypes.c_int(_b3(spec)), field_params(spec.ops.field))
+               ctypes.c_int(_b3(spec)), ctypes.c_int(group),
+               ctypes.c_int(threads), ctypes.c_int(blocks),
+               field_params(spec.ops.field))
     count(proj_launch, op, total)
     return out
 
@@ -307,7 +406,9 @@ def fold_plain(spec, q, flags, K: int, proj_q: bool):
 
 def fold_launch(spec, q, flags, K: int, proj_q: bool):
     """Launch K4. q: 2 packed (n/2, K, L) coordinate tensors (level 0) or
-    3 unpacked (n, K, L) ones (proj_q); flags (K, L) int64."""
+    3 unpacked (n, K, L) ones (proj_q); flags (K, L) int64. Besides
+    `count`'s buckets, `.shapes[(mode, L, K)]` counts launches by exact
+    shape."""
     n = spec.ops.field.nlimbs
     device = flags.device
     L = flags.shape[1]
@@ -329,19 +430,23 @@ def fold_launch(spec, q, flags, K: int, proj_q: bool):
     if L == 0:
         return tuple(bufs), tuple(lanes[:3]), tuple(lanes[3:])
     qs = list(q) + [None] * (3 - len(q))
+    group, threads, blocks = fold_geometry(L)
     lib = _build.load("msm_fold")
     with torch.cuda.device(device):
         launch(lib.cosnarks_msm_fold, ctypes.c_int(int(proj_q)),
                *[ptr(a) if a is not None else None for a in qs], ptr(flags),
                *[ptr(b) for b in bufs], *[ptr(x) for x in lanes],
                ctypes.c_int64(K), ctypes.c_int64(L),
-               ctypes.c_int(_b3(spec)), field_params(spec.ops.field))
-    count(fold_launch, int(proj_q), L)
+               ctypes.c_int(_b3(spec)), ctypes.c_int(group),
+               ctypes.c_int(threads), ctypes.c_int(blocks),
+               field_params(spec.ops.field))
+    count(fold_launch, int(proj_q), L, shape=(L, K))
     return tuple(bufs), tuple(lanes[:3]), tuple(lanes[3:])
 
 
 fold_launch.launches = {}
 fold_launch.sizes = {}
+fold_launch.shapes = {}
 
 
 def level0_fold(spec, qx, qy, flags, K: int):

@@ -52,17 +52,22 @@ def size_bucket(total: int) -> int:
     return 1 << max(0, total - 1).bit_length()
 
 
-def count(wrapper, mode: int, total: int):
+def count(wrapper, mode: int, total: int, shape=None):
     """Add one to `wrapper.launches[mode]` and to
-    `wrapper.sizes[(mode, size_bucket(total))]`. Every kernel wrapper calls
-    this right after its kernel launched, and nowhere else; `launches` holds
-    one count per mode (op) of the kernel, `sizes` the histogram of the
+    `wrapper.sizes[(mode, size_bucket(total))]`, and with a `shape` tuple
+    to `wrapper.shapes[(mode, *shape)]`. Every kernel wrapper calls this
+    right after its kernel launched, and nowhere else; `launches` holds one
+    count per mode (op) of the kernel, `sizes` the histogram of the
     launches' batch sizes (`total`: products, points, fold lanes or
-    windows)."""
+    windows), `shapes` the exact launch shapes of a wrapper that files
+    them."""
     with _count_lock:
         wrapper.launches[mode] = wrapper.launches.get(mode, 0) + 1
         key = (mode, size_bucket(total))
         wrapper.sizes[key] = wrapper.sizes.get(key, 0) + 1
+        if shape is not None:
+            key = (mode,) + tuple(shape)
+            wrapper.shapes[key] = wrapper.shapes.get(key, 0) + 1
 
 
 def field_params(field: Field):
