@@ -4,16 +4,19 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero:
-  1. build the six kernels from cosnarks_tpu_torch/csrc (nvcc, sm_90a);
+  1. build the kernels from cosnarks_tpu_torch/csrc (nvcc, sm_90a): K1-K4
+     for fields of 8 and of 12 32-bit words, K5 and K6 for 8;
   2. hold every kernel mode against its plain PyTorch version at main-path
      shapes (exact limb equality), timed on the device beside its bound
      (the plain version with its host launch overhead): K1 at 3, 2^15,
      2^17 and 2^20 products, K2 at 1, 3 and 2^14 points, K3's four modes at
      1, 32 and 2^14 points (edge lanes included), K4's two modes at the
      proofs' L = 40960, 2560 and 160 fold lanes and at L = 160 on edge flag
-     patterns, K5 and K6 at their proof or MSM shapes; call K5 through its
-     entry point curve.madd (a broadcast affine Q, a bool mask), and show
-     that a wrapper raises on a bad CUDA input instead of falling back;
+     patterns, each on BN254 Fq / G1 (8 words) and on BLS12-381 Fq / G1
+     (12 words, rows marked "w12"); K5 and K6 at their proof or MSM shapes;
+     call K5 through its entry point curve.madd (a broadcast affine Q, a
+     bool mask), and show that a wrapper raises on a bad CUDA input instead
+     of falling back, and K5 / K6 on a 24-limb field;
   3. the main path: a domain-2^16 synthetic zkey, then the 3-party Rep3
      Groth16 prover over run_parties, twice; every party returns the same
      proof, it verifies, and every kernel launched during the warm prove;
@@ -21,17 +24,22 @@ Phases, one JSON line each; any failure exits non-zero:
      and K4's launches by exact (L, K);
   3b. the 3-party Shamir (n = 3, t = 1) Groth16 prover on the same zkey,
      once (warm card and caches): the same checks, with its own counts;
+  3c. the same Rep3 prover over BLS12-381 at domain 2^16, twice: a
+     BLS12-381 synthetic zkey, every party the same proof, verified by
+     verify_bls12_381, every 12-word K1-K4 prover mode and K1 at 8 words
+     (Fr) launched during the warm prove;
   4. a 2^20-point G1 MSM at c = 15 over points [k_i]G made on the card,
      checked against the host's [sum s_i k_i]G;
   4b. the same MSM through the other split, _host_horner(_pippenger_wsums):
      K4 and the K6 weighted bucket reduction on the card, Horner on the host;
      then ten pairs of it and msm(), taking turns at going first;
   5. main_path_loss: K1-K3's prover modes timed (and checked) at every
-     launch-size bucket of the two proofs, K4's at every (L, K) they
-     launched, and each mode's loss per proof, sum of launches x
-     (ms - bound);
-  6. the kernel table (every mode of K1-K6 at every checked shape, each with
-     its launches, the phase that counted them and its main-path loss);
+     launch-size bucket of the three proofs, K4's at every (L, K) they
+     launched, each at its width, and each mode's loss per proof, sum of
+     launches x (ms - bound);
+  6. the kernel table (every mode of K1-K6 at every checked shape and
+     width, each with its launches, the phase that counted them and its
+     main-path loss);
      then the card's name and power limit; then
      {"ok": true, "device": {...}} as the last line.
 Imports nothing of JAX or the JAX package; needs one CUDA card.
@@ -51,8 +59,42 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
-MULS_PER_FIELD_MUL = 264  # 8x8 + 8x8 32x32->64 products (lo + hi) + 8 m's
-LIMB_BYTES = 16 * 8  # one field element at the int64 limb boundary
+BN_PHASE, BLS_PHASE = "rep3_groth16", "bls12_381_rep3_groth16"
+PROOFS = (BN_PHASE, "shamir_groth16", BLS_PHASE)
+
+
+class Width:
+    """A field width the kernels are built for, with the curve whose G1
+    checks it: 8 words on BN254, 12 on BLS12-381."""
+
+    def __init__(self, g1, gen, dev):
+        self.g1, self.F = g1, g1.ops.field
+        self.n = self.F.nlimbs
+        self.words = self.n // 2
+        self.tag = "" if self.words == 8 else " w12"  # in mode names
+        self.proof = BN_PHASE if self.words == 8 else BLS_PHASE
+        # one element at the int64 limb boundary; 32-bit multiplies of one
+        # CIOS product (NW x NW products of a and b, NW x NW of m and p,
+        # each a lo and a hi multiply, and NW m's): 264 and 588
+        self.limb_bytes = 8 * self.n
+        self.muls = 4 * self.words ** 2 + self.words
+        top = (self.F.p >> (16 * (self.n - 1))).bit_length()
+        self.top_mask = (1 << (top - 1)) - 1  # top limb below p's
+        self.gen, self.dev = gen, dev
+
+    def rand_fe(self, *shape):
+        """Random canonical limbs (top limb below p's top bit)."""
+        import torch
+
+        x = torch.randint(0, 1 << 16, shape + (self.n,), generator=self.gen,
+                          device=self.dev, dtype=torch.int64)
+        x[..., self.n - 1] &= self.top_mask
+        return x
+
+
+def key_str(key) -> str:
+    """A wrapper's mode key (words, op) as a JSON key."""
+    return f"{key[0]}w:{key[1]}"
 
 
 def pow2(n: int) -> str:
@@ -84,11 +126,11 @@ def main() -> int:
     from cosnarks_tpu_torch.ec import curve as ec
     from cosnarks_tpu_torch.ec import ec_kernels as ek
     from cosnarks_tpu_torch.ec import host, msm
-    from cosnarks_tpu_torch.ec.curves import BN254_G1
+    from cosnarks_tpu_torch.ec.curves import BLS12_381_G1, BN254_G1
     from cosnarks_tpu_torch.ff import mont, mont_kernel
-    from cosnarks_tpu_torch.ff.spec import BN254_FQ
     from cosnarks_tpu_torch.groth16 import drivers, prove, setup
-    from cosnarks_tpu_torch.groth16.verify import verify_bn254
+    from cosnarks_tpu_torch.groth16.verify import (verify_bls12_381,
+                                                   verify_bn254)
     from cosnarks_tpu_torch.mpc import rep3, shamir
     from cosnarks_tpu_torch.mpc.net.local import run_parties
 
@@ -102,17 +144,16 @@ def main() -> int:
     _build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "card": card,
-          "registers": {k: _build.resource_usage(k) for k in _build.KERNELS}})
+          "builds": [f"{k} ({w} words)" for k, w in _build.builds()],
+          "registers": {k + ("" if w == 8 else " (12 words)"):
+                        _build.resource_usage(k, w)
+                        for k, w in _build.builds()}})
 
     # ---- phase 2: kernels against their plain versions -------------------
     gen = torch.Generator(device=dev).manual_seed(0xC05)
-    F = BN254_FQ
-
-    def rand_fe(*shape):
-        x = torch.randint(0, 1 << 16, shape + (16,), generator=gen,
-                          device=dev, dtype=torch.int64)
-        x[..., 15] &= 0x1FFF  # < 2^253 < p: canonical
-        return x
+    W8, W12 = Width(BN254_G1, gen, dev), Width(BLS12_381_G1, gen, dev)
+    F = W8.F
+    rand_fe = W8.rand_fe
 
     sleep_s = 0.05
 
@@ -154,36 +195,44 @@ def main() -> int:
         return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops,
                                                             "operations")
 
-    # every kernel mode: the wrapper and mode that count it, and the phase
-    # whose run gives its launches (None: launched by the checks alone)
-    modes = {
-        "K1 mont_mul": (mont_kernel.mul, 0, "rep3_groth16"),
-        "K2 jacobian add": (ek.jacobian_launch, ek.JAC_ADD, "rep3_groth16"),
-        "K2 jacobian double": (ek.jacobian_launch, ek.JAC_DOUBLE,
-                               "rep3_groth16"),
-        "K3 proj add": (ek.proj_launch, ek.PROJ_ADD, "rep3_groth16"),
-        "K3 proj madd": (ek.proj_launch, ek.PROJ_MADD, None),
-        "K3 proj madd (masked)": (ek.proj_launch, ek.PROJ_MADD_MASKED,
-                                  None),
-        "K3 proj double": (ek.proj_launch, ek.PROJ_DOUBLE, "rep3_groth16"),
-        "K4 fold level 0": (ek.fold_launch, 0, "rep3_groth16"),
-        "K4 fold projective": (ek.fold_launch, 1, "rep3_groth16"),
-        "K5 jacobian madd": (ek.madd_launch, ek.MADD, None),
-        "K5 jacobian madd (masked)": (ek.madd_launch, ek.MADD_MASKED, None),
-        "K6 wreduce 2^16/c=13": (ek.wreduce_launch, 4096, None),
-        "K6 wreduce 2^20/c=15": (ek.wreduce_launch, 16384, "msm_wsums_2^20"),
-    }
+    # every kernel mode: the wrapper and its (words, op) key that count it,
+    # and the phase whose run gives its launches (None: launched by the
+    # checks alone); K1-K4 at both widths, the 12-word modes marked "w12"
+    modes = {}
+    for w in (W8, W12):
+        for name, fn, op, proved in (
+                ("K1 mont_mul", mont_kernel.mul, 0, True),
+                ("K2 jacobian add", ek.jacobian_launch, ek.JAC_ADD, True),
+                ("K2 jacobian double", ek.jacobian_launch, ek.JAC_DOUBLE,
+                 True),
+                ("K3 proj add", ek.proj_launch, ek.PROJ_ADD, True),
+                ("K3 proj madd", ek.proj_launch, ek.PROJ_MADD, False),
+                ("K3 proj madd (masked)", ek.proj_launch,
+                 ek.PROJ_MADD_MASKED, False),
+                ("K3 proj double", ek.proj_launch, ek.PROJ_DOUBLE, True),
+                ("K4 fold level 0", ek.fold_launch, 0, True),
+                ("K4 fold projective", ek.fold_launch, 1, True)):
+            modes[name + w.tag] = (fn, (w.words, op),
+                                   w.proof if proved else None)
+    modes.update({
+        "K5 jacobian madd": (ek.madd_launch, (8, ek.MADD), None),
+        "K5 jacobian madd (masked)": (ek.madd_launch, (8, ek.MADD_MASKED),
+                                      None),
+        "K6 wreduce 2^16/c=13": (ek.wreduce_launch, (8, 4096), None),
+        "K6 wreduce 2^20/c=15": (ek.wreduce_launch, (8, 16384),
+                                 "msm_wsums_2^20"),
+    })
     rows = {}
 
-    def check(name, kernel_fn, plain_fn, nbytes, nfield_muls, iters,
+    def check(name, kernel_fn, plain_fn, nbytes, nmuls, iters,
               replaces, source, shape, mode=None, **extra):
-        """Time a kernel mode at one shape beside its bound, hold it against
-        its plain version and keep its row (with `extra`) for the kernel
-        table."""
+        """Time a kernel mode at one shape beside its bound (nbytes moved,
+        nmuls 32-bit multiplies), hold it against its plain version and
+        keep its row (with `extra`) for the kernel table."""
         out, ms, enqueue_ms = timed(kernel_fn, iters, queue_ahead=True)
         ref, plain_ms, _ = timed(plain_fn, 1)
         err = max_err(out, ref)
-        bms, by = bound(nbytes, nfield_muls * MULS_PER_FIELD_MUL)
+        bms, by = bound(nbytes, nmuls)
         row = {"name": name, "mode": mode or name, "shape": shape,
                "route": "cuda", "source": source, "replaces": replaces,
                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
@@ -201,121 +250,6 @@ def main() -> int:
     K2_ADD_SITE = "cosnarks_tpu/ec/pallas_ec.py:102 (_add_call)"
     K2_DOUBLE_SITE = "cosnarks_tpu/ec/pallas_ec.py:130 (_double_call)"
     K2_SRC = "cosnarks_tpu_torch/csrc/jacobian.cu"
-
-    # K1 at the main path's batch sizes: 3 products (one Fq2 product of a G2
-    # point op), 2^15 (an NTT butterfly stage of one share component at
-    # domain 2^16), 2^17 (the Fq2 products of a G2 MSM level-0 step) and
-    # 2^20 (the table's shape)
-    n1 = 1 << 20
-    a, b = rand_fe(n1), rand_fe(n1)
-    for n, iters in ((3, 200), (1 << 15, 200), (1 << 17, 50), (n1, 20)):
-        x, y = a[:n], b[:n]
-        check(f"K1 mont_mul {pow2(n)}",
-              lambda x=x, y=y: (mont_kernel.mul(F, x, y),),
-              lambda x=x, y=y: (mont.mul_plain(F, x, y),),
-              3 * n * LIMB_BYTES, n, iters, K1_SITE, K1_SRC,
-              shape=[n, 16], mode="K1 mont_mul")
-
-    # K2 / K3 at 2^14 points with infinity, P = Q and P = -Q lanes mixed in
-    # (lane mod 8: 1 P = Q, 2 P = -Q, 3 P = inf, 4 Q = inf)
-    n2 = 1 << 14
-    P = [rand_fe(n2) for _ in range(3)]
-    Q = [rand_fe(n2) for _ in range(3)]
-    lane = torch.arange(n2, device=dev)
-    for c in range(3):  # P = Q on lanes 1 mod 8
-        Q[c] = torch.where((lane % 8 == 1)[:, None], P[c], Q[c])
-    Q[1] = torch.where((lane % 8 == 2)[:, None], mont.neg(F, P[1]), Q[1])
-    Q[0] = torch.where((lane % 8 == 2)[:, None], P[0], Q[0])
-    Q[2] = torch.where((lane % 8 == 2)[:, None], P[2], Q[2])
-    P[2] = torch.where((lane % 8 == 3)[:, None], torch.zeros_like(P[2]),
-                       P[2])  # P = inf
-    Q[2] = torch.where((lane % 8 == 4)[:, None], torch.zeros_like(Q[2]),
-                       Q[2])  # Q = inf
-    P = [x.contiguous() for x in P]
-    Q = [x.contiguous() for x in Q]
-    finite = ((lane % 8 != 3) & (lane % 8 != 4))
-    same = lane % 8 == 1
-    g1 = BN254_G1
-    # K2 at the main path's single points (scalar_mul: one ordinary lane,
-    # one P = Q lane), at 3 points (Shamir's batched scalar mul: lanes 0-2,
-    # ordinary, P = Q, P = -Q) and at 2^14 points with every edge lane
-    for label, sl, iters in (("1", slice(0, 1), 200),
-                             ("1 (P = Q)", slice(1, 2), 200),
-                             ("3", slice(0, 3), 200),
-                             ("2^14", slice(0, n2), 20)):
-        Ps, Qs = [x[sl] for x in P], [x[sl] for x in Q]
-        n = Ps[0].shape[0]
-        add_muls = int(finite[sl].sum()) * 16 + int(same[sl].sum()) * 7
-        check(f"K2 jacobian add {label}",
-              lambda Ps=Ps, Qs=Qs: ek.jacobian_launch(g1, ek.JAC_ADD,
-                                                      Ps + Qs),
-              lambda Ps=Ps, Qs=Qs: ek.add_plain(g1, tuple(Ps), tuple(Qs)),
-              9 * n * LIMB_BYTES, add_muls, iters, K2_ADD_SITE, K2_SRC,
-              shape=[n, 16], mode="K2 jacobian add")
-    # the double at 1 ordinary point, at 3 (lanes 2-4, P = inf on lane 3)
-    # and at 2^14
-    for label, sl, iters in (("1", slice(0, 1), 200),
-                             ("3 (P = inf)", slice(2, 5), 200),
-                             ("2^14", slice(0, n2), 20)):
-        Ps = [x[sl] for x in P]
-        n = Ps[0].shape[0]
-        check(f"K2 jacobian double {label}",
-              lambda Ps=Ps: ek.jacobian_launch(g1, ek.JAC_DOUBLE, Ps),
-              lambda Ps=Ps: ek.double_plain(g1, tuple(Ps)),
-              6 * n * LIMB_BYTES, 7 * n, iters, K2_DOUBLE_SITE, K2_SRC,
-              shape=[n, 16], mode="K2 jacobian double")
-    # K3 in every mode at 1 point, at 32 (lanes 0-31: every edge lane) and
-    # at 2^14, on projective points: (0 : 1 : 0) on P's lanes 3 mod 8 and
-    # Q's lanes 4 mod 8, P = Q on lanes 1 mod 8, P = -Q on lanes 2 mod 8;
-    # the masked madd drops lanes 0 mod 4, so its 1-point case is also run
-    # on lane 1 (valid, P = Q), where the madd's layers run
-    one2 = mont.broadcast_one(F, (n2,), device=dev)
-    ident = (torch.zeros_like(one2), one2, torch.zeros_like(one2))
-    PP = [torch.where((lane % 8 == 3)[:, None], i, x).contiguous()
-          for x, i in zip(P, ident)]
-    QQ = [torch.where((lane % 8 == 4)[:, None], i, x).contiguous()
-          for x, i in zip(Q, ident)]
-    valid = (lane % 4 != 0).to(torch.int64).contiguous()
-    k3_site = "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, {})"
-    k3_modes = (  # name, op, formula, coordinates moved, field products
-        ("K3 proj add", ek.PROJ_ADD, "add", 9, 12),
-        ("K3 proj madd", ek.PROJ_MADD, "madd", 8, 11),
-        ("K3 proj madd (masked)", ek.PROJ_MADD_MASKED, "madd", 8, 11),
-        ("K3 proj double", ek.PROJ_DOUBLE, "double", 6, 8),
-    )
-    for name, op, formula, ncoords, nmuls in k3_modes:
-        masked = op == ek.PROJ_MADD_MASKED
-        shapes = [("1", slice(0, 1), 200), ("32", slice(0, 32), 200),
-                  ("2^14", slice(0, n2), 20)]
-        if masked:
-            shapes.insert(1, ("1 (valid)", slice(1, 2), 200))
-        for label, sl, iters in shapes:
-            Ps, Qs, vs = [x[sl] for x in PP], [x[sl] for x in QQ], valid[sl]
-            n = Ps[0].shape[0]
-            vm = vs if masked else None
-            ins = Ps + (Qs if op == ek.PROJ_ADD
-                        else [] if op == ek.PROJ_DOUBLE else Qs[:2])
-            plain = {
-                "add": lambda Ps=Ps, Qs=Qs: ek.proj_add_plain(
-                    g1, tuple(Ps), tuple(Qs)),
-                "madd": lambda Ps=Ps, Qs=Qs, vm=vm: ek.proj_madd_plain(
-                    g1, tuple(Ps), tuple(Qs[:2]),
-                    None if vm is None else vm != 0),
-                "double": lambda Ps=Ps: ek.proj_double_plain(g1, tuple(Ps)),
-            }[formula]
-            check(f"{name} {label}",
-                  lambda op=op, ins=ins, vm=vm: ek.proj_launch(g1, op, ins,
-                                                               vm),
-                  plain,
-                  ncoords * n * LIMB_BYTES + (n * 8 if masked else 0),
-                  nmuls * (int(vs.sum()) if masked else n), iters,
-                  k3_site.format(formula),
-                  "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n, 16],
-                  mode=name)
-
-    # K4 in both modes at the proofs' lane counts at domain 2^16 (c = 13:
-    # 20 windows x 2048, 128 and 8 chunks), and at L = 160 on edge flag
-    # patterns
     K = 32
 
     def fold_flags(L, K, pattern=None):
@@ -334,36 +268,171 @@ def main() -> int:
                  | (save.to(torch.int64) << 2))
         return flags.contiguous(), changed, valid
 
-    def fold_case(L, proj_q, K=K, pattern=None):
-        """K4 on random operands: (kernel_fn, plain_fn, bytes, field
-        products); level 0 takes its operands packed."""
+    def fold_case(w, L, proj_q, K=K, pattern=None):
+        """K4 at width w on random operands: (kernel_fn, plain_fn, bytes,
+        32-bit multiplies); level 0 takes its operands packed."""
         fl, ch, va = fold_flags(L, K, pattern)
-        q = [rand_fe(K, L).permute(2, 0, 1).contiguous()  # (16, K, L)
+        q = [w.rand_fe(K, L).permute(2, 0, 1).contiguous()  # (n, K, L)
              for _ in range(3 if proj_q else 2)]
         qk = q if proj_q else [(c[0::2] | (c[1::2] << 16)).contiguous()
                                for c in q]
         nmuls = (12 * int((~ch).sum()) if proj_q
                  else 11 * int((~ch & va).sum()))
-        nbytes = (sum(c.numel() for c in qk) + K * L + 3 * 16 * K * L
-                  + 6 * 16 * L) * 8
-        return (lambda: ek.fold_launch(g1, qk, fl, K, proj_q),
-                lambda: ek.fold_plain(g1, tuple(q), fl, K, proj_q),
-                nbytes, nmuls)
+        nbytes = (sum(c.numel() for c in qk) + K * L + 3 * w.n * K * L
+                  + 6 * w.n * L) * 8
+        return (lambda: ek.fold_launch(w.g1, qk, fl, K, proj_q),
+                lambda: ek.fold_plain(w.g1, tuple(q), fl, K, proj_q),
+                nbytes, nmuls * w.muls)
 
-    for proj_q, name in ((False, "K4 fold level 0"),
-                         (True, "K4 fold projective")):
-        for L, pattern, iters in ((40960, None, 5), (2560, None, 20),
-                                  (160, None, 20), (160, "all changed", 20),
-                                  (160, "all invalid", 20),
-                                  (160, "save-prefix on step 0", 20)):
-            kernel_fn, plain_fn, nbytes, nmuls = fold_case(L, proj_q,
-                                                           pattern=pattern)
-            check(f"{name} L={L}" + (f" ({pattern})" if pattern else ""),
-                  kernel_fn, plain_fn, nbytes, nmuls, iters,
-                  f"cosnarks_tpu/ec/pallas_ec.py:340 (_level0_call, "
-                  f"proj_q={proj_q})", "cosnarks_tpu_torch/csrc/msm_fold.cu",
-                  shape=[K, L], mode=name, flags=pattern or "smoke")
-            del kernel_fn, plain_fn
+    def check_k1_k4(w):
+        """K1-K4 at width w against their plain versions at the main path's
+        shapes, edge lanes and flag patterns included."""
+        F, g1, tag, eb = w.F, w.g1, w.tag, w.limb_bytes
+        n0 = w.n
+        # K1 at the main path's batch sizes: 3 products (one Fq2 product
+        # of a G2 point op), 2^15 (an NTT butterfly stage of one share
+        # component at domain 2^16), 2^17 (the Fq2 products of a G2 MSM
+        # level-0 step) and 2^20 (the table's shape)
+        n1 = 1 << 20
+        a, b = w.rand_fe(n1), w.rand_fe(n1)
+        for n, iters in ((3, 200), (1 << 15, 200), (1 << 17, 50), (n1, 20)):
+            x, y = a[:n], b[:n]
+            check(f"K1 mont_mul{tag} {pow2(n)}",
+                  lambda x=x, y=y: (mont_kernel.mul(F, x, y),),
+                  lambda x=x, y=y: (mont.mul_plain(F, x, y),),
+                  3 * n * eb, n * w.muls, iters, K1_SITE, K1_SRC,
+                  shape=[n, n0], mode=f"K1 mont_mul{tag}")
+        del a, b
+
+        # K2 / K3 at 2^14 points with infinity, P = Q and P = -Q lanes
+        # mixed in (lane mod 8: 1 P = Q, 2 P = -Q, 3 P = inf, 4 Q = inf)
+        n2 = 1 << 14
+        P = [w.rand_fe(n2) for _ in range(3)]
+        Q = [w.rand_fe(n2) for _ in range(3)]
+        lane = torch.arange(n2, device=dev)
+        for c in range(3):  # P = Q on lanes 1 mod 8
+            Q[c] = torch.where((lane % 8 == 1)[:, None], P[c], Q[c])
+        Q[1] = torch.where((lane % 8 == 2)[:, None], mont.neg(F, P[1]),
+                           Q[1])
+        Q[0] = torch.where((lane % 8 == 2)[:, None], P[0], Q[0])
+        Q[2] = torch.where((lane % 8 == 2)[:, None], P[2], Q[2])
+        P[2] = torch.where((lane % 8 == 3)[:, None], torch.zeros_like(P[2]),
+                           P[2])  # P = inf
+        Q[2] = torch.where((lane % 8 == 4)[:, None], torch.zeros_like(Q[2]),
+                           Q[2])  # Q = inf
+        P = [x.contiguous() for x in P]
+        Q = [x.contiguous() for x in Q]
+        finite = ((lane % 8 != 3) & (lane % 8 != 4))
+        same = lane % 8 == 1
+        # K2 at the main path's single points (scalar_mul: one ordinary
+        # lane, one P = Q lane), at 3 points (Shamir's batched scalar mul:
+        # lanes 0-2, ordinary, P = Q, P = -Q) and at 2^14 points with every
+        # edge lane
+        for label, sl, iters in (("1", slice(0, 1), 200),
+                                 ("1 (P = Q)", slice(1, 2), 200),
+                                 ("3", slice(0, 3), 200),
+                                 ("2^14", slice(0, n2), 20)):
+            Ps, Qs = [x[sl] for x in P], [x[sl] for x in Q]
+            n = Ps[0].shape[0]
+            add_muls = int(finite[sl].sum()) * 16 + int(same[sl].sum()) * 7
+            check(f"K2 jacobian add{tag} {label}",
+                  lambda Ps=Ps, Qs=Qs: ek.jacobian_launch(g1, ek.JAC_ADD,
+                                                          Ps + Qs),
+                  lambda Ps=Ps, Qs=Qs: ek.add_plain(g1, tuple(Ps),
+                                                    tuple(Qs)),
+                  9 * n * eb, add_muls * w.muls, iters, K2_ADD_SITE, K2_SRC,
+                  shape=[n, n0], mode=f"K2 jacobian add{tag}")
+        # the double at 1 ordinary point, at 3 (lanes 2-4, P = inf on lane
+        # 3) and at 2^14
+        for label, sl, iters in (("1", slice(0, 1), 200),
+                                 ("3 (P = inf)", slice(2, 5), 200),
+                                 ("2^14", slice(0, n2), 20)):
+            Ps = [x[sl] for x in P]
+            n = Ps[0].shape[0]
+            check(f"K2 jacobian double{tag} {label}",
+                  lambda Ps=Ps: ek.jacobian_launch(g1, ek.JAC_DOUBLE, Ps),
+                  lambda Ps=Ps: ek.double_plain(g1, tuple(Ps)),
+                  6 * n * eb, 7 * n * w.muls, iters, K2_DOUBLE_SITE, K2_SRC,
+                  shape=[n, n0], mode=f"K2 jacobian double{tag}")
+        # K3 in every mode at 1 point, at 32 (lanes 0-31: every edge lane)
+        # and at 2^14, on projective points: (0 : 1 : 0) on P's lanes 3 mod
+        # 8 and Q's lanes 4 mod 8, P = Q on lanes 1 mod 8, P = -Q on lanes
+        # 2 mod 8; the masked madd drops lanes 0 mod 4, so its 1-point case
+        # is also run on lane 1 (valid, P = Q), where the madd's layers run
+        one2 = mont.broadcast_one(F, (n2,), device=dev)
+        ident = (torch.zeros_like(one2), one2, torch.zeros_like(one2))
+        PP = [torch.where((lane % 8 == 3)[:, None], i, x).contiguous()
+              for x, i in zip(P, ident)]
+        QQ = [torch.where((lane % 8 == 4)[:, None], i, x).contiguous()
+              for x, i in zip(Q, ident)]
+        valid = (lane % 4 != 0).to(torch.int64).contiguous()
+        k3_site = "cosnarks_tpu/ec/pallas_ec.py:536 (_proj_op_call, {})"
+        k3_modes = (  # name, op, formula, coordinates moved, field products
+            ("K3 proj add", ek.PROJ_ADD, "add", 9, 12),
+            ("K3 proj madd", ek.PROJ_MADD, "madd", 8, 11),
+            ("K3 proj madd (masked)", ek.PROJ_MADD_MASKED, "madd", 8, 11),
+            ("K3 proj double", ek.PROJ_DOUBLE, "double", 6, 8),
+        )
+        for name, op, formula, ncoords, nmuls in k3_modes:
+            masked = op == ek.PROJ_MADD_MASKED
+            shapes = [("1", slice(0, 1), 200), ("32", slice(0, 32), 200),
+                      ("2^14", slice(0, n2), 20)]
+            if masked:
+                shapes.insert(1, ("1 (valid)", slice(1, 2), 200))
+            for label, sl, iters in shapes:
+                Ps, Qs = [x[sl] for x in PP], [x[sl] for x in QQ]
+                vs = valid[sl]
+                n = Ps[0].shape[0]
+                vm = vs if masked else None
+                ins = Ps + (Qs if op == ek.PROJ_ADD
+                            else [] if op == ek.PROJ_DOUBLE else Qs[:2])
+                plain = {
+                    "add": lambda Ps=Ps, Qs=Qs: ek.proj_add_plain(
+                        g1, tuple(Ps), tuple(Qs)),
+                    "madd": lambda Ps=Ps, Qs=Qs, vm=vm: ek.proj_madd_plain(
+                        g1, tuple(Ps), tuple(Qs[:2]),
+                        None if vm is None else vm != 0),
+                    "double": lambda Ps=Ps: ek.proj_double_plain(
+                        g1, tuple(Ps)),
+                }[formula]
+                check(f"{name}{tag} {label}",
+                      lambda op=op, ins=ins, vm=vm: ek.proj_launch(
+                          g1, op, ins, vm),
+                      plain,
+                      ncoords * n * eb + (n * 8 if masked else 0),
+                      nmuls * (int(vs.sum()) if masked else n) * w.muls,
+                      iters, k3_site.format(formula),
+                      "cosnarks_tpu_torch/csrc/proj_op.cu", shape=[n, n0],
+                      mode=name + tag)
+
+        # K4 in both modes at the proofs' lane counts at domain 2^16 (c =
+        # 13: 20 windows x 2048, 128 and 8 chunks), and at L = 160 on edge
+        # flag patterns
+        for proj_q, name in ((False, "K4 fold level 0"),
+                             (True, "K4 fold projective")):
+            for L, pattern, iters in ((40960, None, 5), (2560, None, 20),
+                                      (160, None, 20),
+                                      (160, "all changed", 20),
+                                      (160, "all invalid", 20),
+                                      (160, "save-prefix on step 0", 20)):
+                kernel_fn, plain_fn, nbytes, nmuls = fold_case(
+                    w, L, proj_q, pattern=pattern)
+                check(f"{name}{tag} L={L}"
+                      + (f" ({pattern})" if pattern else ""),
+                      kernel_fn, plain_fn, nbytes, nmuls, iters,
+                      f"cosnarks_tpu/ec/pallas_ec.py:340 (_level0_call, "
+                      f"proj_q={proj_q})",
+                      "cosnarks_tpu_torch/csrc/msm_fold.cu",
+                      shape=[K, L], mode=name + tag, flags=pattern or "smoke")
+                del kernel_fn, plain_fn
+        return P, Q, lane, valid
+
+    P, Q, lane, valid = check_k1_k4(W8)
+    check_k1_k4(W12)
+    torch.cuda.empty_cache()
+    n2 = 1 << 14
+    g1 = BN254_G1
+    LIMB_BYTES, MULS = W8.limb_bytes, W8.muls
 
     # K5 at 2^14 points: Jacobian P with P = Q (X1 = x2 Z1^2, Y1 = y2 Z1^3)
     # on lanes 1 mod 8, P = -Q on lanes 2 mod 8, P = inf on lanes 3 mod 8;
@@ -388,7 +457,7 @@ def main() -> int:
               lambda vm=vm: ek.madd_plain(
                   g1, tuple(PJ), tuple(QA), None if vm is None else vm != 0),
               8 * n2 * LIMB_BYTES + (n2 * 8 if masked else 0),
-              11 * int(live.sum()), 20,
+              11 * int(live.sum()) * MULS, 20,
               "cosnarks_tpu/ec/pallas_ec.py:157 (_madd_call"
               + (", masked)" if masked else ")"),
               "cosnarks_tpu_torch/csrc/jacobian_madd.cu", shape=[n2, 16])
@@ -431,7 +500,8 @@ def main() -> int:
         check(f"K6 wreduce {shape}",
               lambda bk=bk: ek.wreduce_launch(g1, bk),
               lambda bk=bk: ek.wreduce_plain(g1, tuple(bk)),
-              (3 * nwin * W + 3 * nwin) * LIMB_BYTES, nwin * 12 * adds, 5,
+              (3 * nwin * W + 3 * nwin) * LIMB_BYTES,
+              nwin * 12 * adds * MULS, 5,
               "cosnarks_tpu/ec/pallas_ec.py:192 (_wreduce_call)",
               "cosnarks_tpu_torch/csrc/wreduce.cu", shape=[nwin, W],
               counted={"rcb_adds_per_window": adds,
@@ -441,8 +511,10 @@ def main() -> int:
         del bk
     del Zsq, Zcu, Xs, Ys, PJ, QA
 
-    # a CUDA tensor never reaches a plain version: bad inputs raise
+    # a CUDA tensor never reaches a plain version: bad inputs raise, and K5
+    # and K6 (built at 8 words only) refuse a 24-limb BLS12-381 field
     refused = []
+    a = rand_fe(16)
     for bad in (a[:8].to(torch.int32), a[:16, ::2], a[:8, :8]):
         try:
             mont_kernel.mul(F, bad, bad)
@@ -450,8 +522,18 @@ def main() -> int:
             refused.append(type(e).__name__)
     if len(refused) != 3:
         raise AssertionError("a kernel wrapper accepted a bad CUDA input")
+    wide = W12.rand_fe(64)
+    for name, call in (
+            ("K5", lambda: ek.madd_launch(W12.g1, [wide] * 5)),
+            ("K6", lambda: ek.wreduce_launch(W12.g1, [wide[None]] * 3))):
+        try:
+            call()
+        except ValueError as e:
+            refused.append(f"{name}: {e}")
+        else:
+            raise AssertionError(f"{name} launched on a 24-limb field")
     emit({"phase": "wrapper_refuses_bad_input", "raised": refused})
-    del a, b, P, Q, PP, QQ
+    del a, wide, P, Q
     torch.cuda.empty_cache()
     counters = (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
                 ek.fold_launch, ek.madd_launch, ek.wreduce_launch)
@@ -463,36 +545,45 @@ def main() -> int:
         ek.fold_launch.shapes.clear()
 
     def read_counts():
-        return {c.__qualname__: dict(c.launches) for c in counters}
+        """{wrapper: {"<words>w:<op>": launches}}."""
+        return {c.__qualname__: {key_str(k): n for k, n in
+                                 sorted(c.launches.items())}
+                for c in counters}
 
     def read_sizes():
-        """The launch-size histogram of every prover mode: {mode name:
-        {bucket: launches}}, bucket the power of two at or above the
-        launch's batch (products, points, fold lanes)."""
+        """The launch-size histogram of every prover mode at both widths:
+        {mode name: {bucket: launches}}, bucket the power of two at or
+        above the launch's batch (products, points, fold lanes)."""
         return {name: {str(bk): n for (m, bk), n in sorted(fn.sizes.items())
                        if m == mode}
                 for name, (fn, mode, phase) in modes.items()
-                if phase == "rep3_groth16"}
+                if phase in PROOFS}
 
     counts_by_phase, sizes_by_phase, shapes_by_phase = {}, {}, {}
 
     def read_shapes():
-        """K4's launches by exact shape: {(mode, L, K): launches}."""
+        """K4's launches by exact shape: {((words, mode), L, K):
+        launches}."""
         return dict(ek.fold_launch.shapes)
 
     def shape_names(shapes):
-        return {f"{'projective' if m else 'level 0'} L={L} K={k}": n
-                for (m, L, k), n in sorted(shapes.items())}
+        return {f"{'projective' if m else 'level 0'}"
+                f"{'' if nw == 8 else ' w12'} L={L} K={k}": n
+                for ((nw, m), L, k), n in sorted(shapes.items())}
 
     def require_launched(phase, names):
         """Fail unless every mode in `names` launched in `phase`'s run."""
         got = counts_by_phase[phase]
         missing = [n for n in names
-                   if got[modes[n][0].__qualname__].get(modes[n][1], 0) == 0]
+                   if got[modes[n][0].__qualname__].get(
+                       key_str(modes[n][1]), 0) == 0]
         if missing:
             raise AssertionError(f"{phase}: {missing} did not launch: {got}")
 
-    prover_modes = [n for n, m in modes.items() if m[2] == "rep3_groth16"]
+    prover_modes = [n for n, m in modes.items() if m[2] == BN_PHASE]
+    # the BLS12-381 proof: G1 and Fq at 12 words, Fr (witness map, NTT) at 8
+    bls_modes = [n for n, m in modes.items() if m[2] == BLS_PHASE]
+    bls_modes.append("K1 mont_mul")
 
     # ---- phase 3: the main path ------------------------------------------
     logn = 16
@@ -500,7 +591,6 @@ def main() -> int:
     zkey, w = setup.cached_synthetic_zkey((1 << logn) - 2)
     t_zkey = time.perf_counter() - t0
     n_inst = zkey.n_public + 1
-    vk = prove.vk_from_zkey(zkey)
     shares = rep3.share_field_elements(zkey.fr, w[n_inst:],
                                        random.Random(0xF1A6), device=dev)
 
@@ -508,7 +598,10 @@ def main() -> int:
         state = rep3.Rep3State.setup(net, bytes([net.id + 1]) * 32)
         return drivers.Rep3Driver(net, state), shares[net.id]
 
-    def run_prove(make_driver):
+    def run_prove(make_driver, zkey, w, verify=verify_bn254):
+        n_inst = zkey.n_public + 1
+        vk = prove.vk_from_zkey(zkey)
+
         def party(net):
             drv, share = make_driver(net)
             wit = prove.SharedWitness(public_inputs=w[:n_inst],
@@ -523,13 +616,13 @@ def main() -> int:
         proof = res[0][0]
         if not all(r[0] == proof for r in res):
             raise AssertionError("parties disagree")
-        if not verify_bn254(vk, proof, w[1:n_inst]):
+        if not verify(vk, proof, w[1:n_inst]):
             raise AssertionError("proof does not verify")
         return res, time.perf_counter() - t0
 
-    res, t_first = run_prove(rep3_party)
+    res, t_first = run_prove(rep3_party, zkey, w)
     clear_counts()
-    res, t_warm = run_prove(rep3_party)
+    res, t_warm = run_prove(rep3_party, zkey, w)
     counts_by_phase["rep3_groth16"] = by_op = read_counts()
     sizes_by_phase["rep3_groth16"] = sizes = read_sizes()
     shapes_by_phase["rep3_groth16"] = shapes = read_shapes()
@@ -554,7 +647,7 @@ def main() -> int:
         return drivers.ShamirDriver(net, state), sh_shares[net.id]
 
     clear_counts()
-    res, t_shamir = run_prove(shamir_party)
+    res, t_shamir = run_prove(shamir_party, zkey, w)
     counts_by_phase["shamir_groth16"] = by_op = read_counts()
     sizes_by_phase["shamir_groth16"] = sizes = read_sizes()
     shapes_by_phase["shamir_groth16"] = shapes = read_shapes()
@@ -566,6 +659,37 @@ def main() -> int:
           "launches_by_mode": by_op, "launch_sizes": sizes,
           "fold_shapes": shape_names(shapes)})
     del zkey, sh_shares, res
+    torch.cuda.empty_cache()
+
+    # ---- phase 3c: 3-party Rep3 over BLS12-381 at domain 2^16 ------------
+    t0 = time.perf_counter()
+    bzkey, bw = setup.cached_synthetic_zkey((1 << logn) - 2,
+                                            curve_pair=setup.BLS12_381)
+    t_bzkey = time.perf_counter() - t0
+    bn_inst = bzkey.n_public + 1
+    b_shares = rep3.share_field_elements(bzkey.fr, bw[bn_inst:],
+                                         random.Random(0xB15), device=dev)
+
+    def bls_party(net):
+        state = rep3.Rep3State.setup(net, bytes([net.id + 0x21]) * 32)
+        return drivers.Rep3Driver(net, state), b_shares[net.id]
+
+    res, t_first = run_prove(bls_party, bzkey, bw, verify_bls12_381)
+    clear_counts()
+    res, t_warm = run_prove(bls_party, bzkey, bw, verify_bls12_381)
+    counts_by_phase[BLS_PHASE] = by_op = read_counts()
+    sizes_by_phase[BLS_PHASE] = sizes = read_sizes()
+    shapes_by_phase[BLS_PHASE] = shapes = read_shapes()
+    require_launched(BLS_PHASE, bls_modes)
+    emit({"phase": BLS_PHASE, "curve": "bls12_381",
+          "domain": bzkey.domain_size, "zkey_seconds": t_bzkey,
+          "first_prove_s": t_first, "warm_prove_s": t_warm,
+          "verified": True, "parties_agree": True,
+          "phase_seconds_by_party": [r[1] for r in res],
+          "launches": {k: sum(v.values()) for k, v in by_op.items()},
+          "launches_by_mode": by_op, "launch_sizes": sizes,
+          "fold_shapes": shape_names(shapes)})
+    del bzkey, b_shares, res
     torch.cuda.empty_cache()
 
     # ---- phase 4: bench.py's shape: 2^20-point G1 MSM at c = 15 ----------
@@ -644,96 +768,112 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 5: the proofs' loss, launch size by launch size -----------
-    # Each K1-K3 prover mode is timed at every size bucket at which the warm
-    # Rep3 or the Shamir proof launched it (random canonical operands,
-    # ordinary points), and each K4 mode at every exact (L, K) they launched
-    # (random operands, phase 2's flags), held against its plain version,
-    # and its loss per proof summed as launches x (ms - bound_ms), a bucket
-    # at or below its bound adding 0
-    def case(launch, plain, ncoords, nout, field_muls):
+    # Each K1-K3 prover mode, at each width, is timed at every size bucket
+    # at which the warm Rep3, the Shamir or the BLS12-381 proof launched it
+    # (random canonical operands, ordinary points), and each K4 mode at
+    # every exact (L, K) they launched (random operands, phase 2's flags),
+    # held against its plain version, and its loss per proof summed as
+    # launches x (ms - bound_ms), a bucket at or below its bound adding 0
+    def case(w, launch, plain, ncoords, nout, field_muls):
         def make(n):
-            c = [rand_fe(n) for _ in range(ncoords)]
+            c = [w.rand_fe(n) for _ in range(ncoords)]
             return (lambda: launch(c), lambda: plain(c),
-                    (ncoords + nout) * n * LIMB_BYTES, field_muls * n)
+                    (ncoords + nout) * n * w.limb_bytes,
+                    field_muls * n * w.muls)
         return make
 
-    cases = {
-        "K1 mont_mul": case(lambda c: (mont_kernel.mul(F, *c),),
-                            lambda c: (mont.mul_plain(F, *c),), 2, 1, 1),
-        "K2 jacobian add": case(
-            lambda c: ek.jacobian_launch(g1, ek.JAC_ADD, c),
-            lambda c: ek.add_plain(g1, tuple(c[:3]), tuple(c[3:])),
-            6, 3, 16),
-        "K2 jacobian double": case(
-            lambda c: ek.jacobian_launch(g1, ek.JAC_DOUBLE, c),
-            lambda c: ek.double_plain(g1, tuple(c)), 3, 3, 7),
-        "K3 proj add": case(
-            lambda c: ek.proj_launch(g1, ek.PROJ_ADD, c),
-            lambda c: ek.proj_add_plain(g1, tuple(c[:3]), tuple(c[3:])),
-            6, 3, 12),
-        "K3 proj double": case(
-            lambda c: ek.proj_launch(g1, ek.PROJ_DOUBLE, c),
-            lambda c: ek.proj_double_plain(g1, tuple(c)), 3, 3, 8),
-    }
-    proofs = ("rep3_groth16", "shamir_groth16")
-    buckets, loss = [], {ph: dict.fromkeys(cases, 0.0) for ph in proofs}
+    cases = {}
+    for w in (W8, W12):
+        F_, g_ = w.F, w.g1
+        cases.update({
+            "K1 mont_mul" + w.tag: case(
+                w, lambda c, F_=F_: (mont_kernel.mul(F_, *c),),
+                lambda c, F_=F_: (mont.mul_plain(F_, *c),), 2, 1, 1),
+            "K2 jacobian add" + w.tag: case(
+                w, lambda c, g_=g_: ek.jacobian_launch(g_, ek.JAC_ADD, c),
+                lambda c, g_=g_: ek.add_plain(g_, tuple(c[:3]),
+                                              tuple(c[3:])), 6, 3, 16),
+            "K2 jacobian double" + w.tag: case(
+                w, lambda c, g_=g_: ek.jacobian_launch(g_, ek.JAC_DOUBLE,
+                                                       c),
+                lambda c, g_=g_: ek.double_plain(g_, tuple(c)), 3, 3, 7),
+            "K3 proj add" + w.tag: case(
+                w, lambda c, g_=g_: ek.proj_launch(g_, ek.PROJ_ADD, c),
+                lambda c, g_=g_: ek.proj_add_plain(g_, tuple(c[:3]),
+                                                   tuple(c[3:])), 6, 3, 12),
+            "K3 proj double" + w.tag: case(
+                w, lambda c, g_=g_: ek.proj_launch(g_, ek.PROJ_DOUBLE, c),
+                lambda c, g_=g_: ek.proj_double_plain(g_, tuple(c)),
+                3, 3, 8),
+        })
+    buckets, loss = [], {ph: dict.fromkeys(cases, 0.0) for ph in PROOFS}
     for name, make in cases.items():
-        for n in sorted({int(bk) for ph in proofs
+        for n in sorted({int(bk) for ph in PROOFS
                          for bk in sizes_by_phase[ph][name]}):
-            kernel_fn, plain_fn, nbytes, nfield_muls = make(n)
+            kernel_fn, plain_fn, nbytes, nmuls = make(n)
             out, ms, enqueue_ms = timed(kernel_fn, 200 if n <= 1 << 15
                                         else 20, queue_ahead=True)
             if max_err(out, plain_fn()) != 0:
                 raise AssertionError(f"{name} at {n}: kernel differs from "
                                      "plain version")
-            bms, by = bound(nbytes, nfield_muls * MULS_PER_FIELD_MUL)
+            bms, by = bound(nbytes, nmuls)
             launches = {ph: sizes_by_phase[ph][name].get(str(n), 0)
-                        for ph in proofs}
+                        for ph in PROOFS}
             buckets.append({"mode": name, "bucket": n, "ms": ms,
                             "bound_ms": bms, "bound_by": by,
                             "max_abs_err": 0, "enqueue_ms": enqueue_ms,
                             "launches": launches})
-            for ph in proofs:
+            for ph in PROOFS:
                 loss[ph][name] += launches[ph] * max(0.0, ms - bms)
-    fold_modes = {0: "K4 fold level 0", 1: "K4 fold projective"}
-    for ph in proofs:
+            del kernel_fn, plain_fn, out
+    widths = {8: W8, 12: W12}
+    fold_modes = {(w.words, m): name + w.tag for w in (W8, W12)
+                  for m, name in ((0, "K4 fold level 0"),
+                                  (1, "K4 fold projective"))}
+    for ph in PROOFS:
         loss[ph].update(dict.fromkeys(fold_modes.values(), 0.0))
-    for m, L, k in sorted({key for ph in proofs
+    for m, L, k in sorted({key for ph in PROOFS
                            for key in shapes_by_phase[ph]}):
         name = fold_modes[m]
-        kernel_fn, plain_fn, nbytes, nfield_muls = fold_case(L, bool(m), K=k)
+        kernel_fn, plain_fn, nbytes, nmuls = fold_case(
+            widths[m[0]], L, bool(m[1]), K=k)
         out, ms, enqueue_ms = timed(kernel_fn, 5 if L > 4096 else 20,
                                     queue_ahead=True)
         if max_err(out, plain_fn()) != 0:
             raise AssertionError(f"{name} at L = {L}: kernel differs from "
                                  "plain version")
-        bms, by = bound(nbytes, nfield_muls * MULS_PER_FIELD_MUL)
+        bms, by = bound(nbytes, nmuls)
         launches = {ph: shapes_by_phase[ph].get((m, L, k), 0)
-                    for ph in proofs}
+                    for ph in PROOFS}
         buckets.append({"mode": name, "L": L, "K": k, "ms": ms,
                         "bound_ms": bms, "bound_by": by, "max_abs_err": 0,
                         "enqueue_ms": enqueue_ms, "launches": launches})
-        for ph in proofs:
+        for ph in PROOFS:
             loss[ph][name] += launches[ph] * max(0.0, ms - bms)
         del kernel_fn, plain_fn, out
     emit({"phase": "main_path_loss", "buckets": buckets, "loss_ms": loss})
 
     # ---- phase 6: kernel table, card, result -----------------------------
+    # a row's launches come from the phase that runs its mode (the BN254
+    # Rep3 proof for the 8-word prover modes, the BLS12-381 one for the
+    # 12-word ones); a mode that no proof runs reads that width's proof
     for row in rows.values():
         fn, mode, phase = modes[row["mode"]]
-        got = counts_by_phase[phase or "rep3_groth16"]
-        row["launches"] = got[fn.__qualname__].get(mode, 0)
+        counted_in = phase or (BN_PHASE if mode[0] == 8 else BLS_PHASE)
+        got = counts_by_phase[counted_in]
+        row["launches"] = got[fn.__qualname__].get(key_str(mode), 0)
         row["reached_by"] = phase or "kernel_check"
+        row["words"] = mode[0]
         if row["mode"] in cases:
-            row["launches_at_shape"] = sizes_by_phase["rep3_groth16"][
+            row["launches_at_shape"] = sizes_by_phase[counted_in][
                 row["mode"]].get(str(mont_kernel.size_bucket(
                     row["shape"][0])), 0)
-            row["main_path_loss_ms"] = loss["rep3_groth16"][row["mode"]]
+            row["main_path_loss_ms"] = loss[counted_in][row["mode"]]
         elif row["mode"] in fold_modes.values():
             k, L = row["shape"]
-            row["launches_at_shape"] = shapes_by_phase["rep3_groth16"].get(
+            row["launches_at_shape"] = shapes_by_phase[counted_in].get(
                 (mode, L, k), 0) if row["flags"] == "smoke" else 0
-            row["main_path_loss_ms"] = loss["rep3_groth16"][row["mode"]]
+            row["main_path_loss_ms"] = loss[counted_in][row["mode"]]
         else:
             row["main_path_loss_ms"] = row["launches"] * max(
                 0.0, row["ms"] - row["bound_ms"])

@@ -2,10 +2,13 @@
 
 Each kernel source `csrc/<name>.cu` is compiled by nvcc, at first use, into
 its own shared library with a plain C interface (loaded with ctypes), for
-`sm_90a`. All sources build together, one nvcc process each, into
+`sm_90a`: `lib<name>.so` for fields of eight 32-bit words (BN254,
+BLS12-381 Fr), and for K1-K4 also `lib<name>_w12.so`, built with
+-DCOSNARKS_NW=12 for twelve (BLS12-381 Fq), with the same C entry points.
+All builds run together, one nvcc process each, into
 `build/kernels/<hash>/` beside the package, where <hash> covers every file
-in csrc/ and the flags, so an edited source rebuilds and an unchanged one is
-reused. `build/` is listed in .gitignore.
+in csrc/ and both flag sets, so an edited source rebuilds and an unchanged
+one is reused. `build/` is listed in .gitignore.
 
 The build holds a thread lock and a file lock: the Rep3 prover's three party
 threads reach their first kernel call together, and separate processes may
@@ -28,8 +31,12 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
 KERNELS = ("mont_mul", "jacobian", "proj_op", "msm_fold", "jacobian_madd",
            "wreduce")
+# the kernels built at twelve words too (K5 and K6 take eight only)
+WIDE_KERNELS = ("mont_mul", "jacobian", "proj_op", "msm_fold")
+WIDTHS = (8, 12)  # 32-bit words per field element
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--resource-usage"]
+WIDE_FLAGS = ["-DCOSNARKS_NW=12"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -68,7 +75,7 @@ def nvcc_path() -> str:
 
 
 def source_hash() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + WIDE_FLAGS).encode())
     for f in sorted(CSRC.iterdir()):
         if f.suffix in (".cu", ".cuh", ".h"):
             h.update(f.name.encode())
@@ -80,18 +87,34 @@ def build_dir() -> Path:
     return BUILD_ROOT / "kernels" / source_hash()
 
 
+def _stem(name: str, words: int) -> str:
+    """File stem of kernel `name`'s build at `words` words."""
+    if words not in WIDTHS or (words != 8 and name not in WIDE_KERNELS):
+        raise ValueError(f"kernel {name} is not built for {words}-word "
+                         "fields")
+    return name if words == 8 else f"{name}_w{words}"
+
+
+def builds():
+    """Every (kernel, words) build, K1-K4 at both widths."""
+    return [(name, words) for name in KERNELS for words in WIDTHS
+            if words == 8 or name in WIDE_KERNELS]
+
+
 def _build_all(out: Path) -> None:
-    """Compile every kernel that is not built yet, all in parallel."""
+    """Compile every kernel build that is not there yet, all in parallel."""
     nvcc = nvcc_path()
     procs = {}
-    for name in KERNELS:
-        lib = out / f"lib{name}.so"
+    for name, words in builds():
+        stem = _stem(name, words)
+        lib = out / f"lib{stem}.so"
         if lib.exists():
             continue
-        tmp = out / f"lib{name}.so.tmp"
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+        tmp = out / f"lib{stem}.so.tmp"
+        flags = NVCC_FLAGS + (WIDE_FLAGS if words == 12 else [])
+        cmd = [nvcc, *flags, "-I", str(CSRC), "-o", str(tmp),
                str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
+        procs[stem] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), tmp, lib)
     failed = []
@@ -121,22 +144,24 @@ def build() -> Path:
     return out
 
 
-def load(name: str):
-    """The ctypes library of kernel `name`, building all kernels first if
-    needed; its entry point has argtypes and restype set."""
-    lib = _libs.get(name)
+def load(name: str, words: int = 8):
+    """The ctypes library of kernel `name` built for fields of `words`
+    32-bit words, building all kernels first if needed; its entry point
+    has argtypes and restype set."""
+    stem = _stem(name, words)
+    lib = _libs.get(stem)
     if lib is not None:
         return lib
     out = build()
     with _lock:
-        if name not in _libs:
-            lib = ctypes.CDLL(str(out / f"lib{name}.so"))
+        if stem not in _libs:
+            lib = ctypes.CDLL(str(out / f"lib{stem}.so"))
             fn_name, argtypes = SIGNATURES[name]
             fn = getattr(lib, fn_name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            _libs[name] = lib
-    return _libs[name]
+            _libs[stem] = lib
+    return _libs[stem]
 
 
 def _demangle(names):
@@ -150,10 +175,10 @@ def _demangle(names):
     return res.stdout.splitlines()
 
 
-def resource_usage(name: str) -> str:
-    """Registers and stack of each kernel entry in kernel `name`'s build
-    (nvcc --resource-usage)."""
-    log = build_dir() / f"{name}.log"
+def resource_usage(name: str, words: int = 8) -> str:
+    """Registers and stack of each kernel entry in kernel `name`'s build at
+    `words` words (nvcc --resource-usage)."""
+    log = build_dir() / f"{_stem(name, words)}.log"
     lines = log.read_text().splitlines() if log.exists() else []
     out, entry, frame = [], name, ""
     for ln in lines:

@@ -1,30 +1,38 @@
-// 256-bit prime-field arithmetic shared by the port's CUDA kernels.
+// Prime-field arithmetic shared by the port's CUDA kernels, for fields of
+// NW 32-bit words: COSNARKS_NW = 8 (the default; BN254 Fq and Fr,
+// BLS12-381 Fr) or 12 (BLS12-381 Fq), fixed when a source is compiled.
 //
-// At the kernel boundary an element is sixteen little-endian 16-bit limbs
-// held in int64 (the port's tensor layout). Inside, it is eight 32-bit
-// words; R = 2^256 either way, so Montgomery values are unchanged. Every
+// At the kernel boundary an element is 2 NW little-endian 16-bit limbs held
+// in int64 (the port's tensor layout). Inside, it is NW 32-bit words;
+// R = 2^(32 NW) either way, so Montgomery values are unchanged. Every
 // function returns the canonical representative (< p), so kernel outputs
 // equal the plain PyTorch versions limb for limb.
 //
 // Two ways across the boundary. fe_load / fe_store read and write an
 // element's limbs from the thread that owns it (K5, K6): neighbouring threads
-// are 128 bytes apart, so a warp's 8-byte access touches 32 lines for 256
+// are 16 NW bytes apart, so a warp's 8-byte access touches 32 lines for 256
 // useful bytes. The tile helpers at the end (K1-K3) move a block's
 // consecutive elements through shared memory instead: 16-byte cp.async
 // copies and 16-byte stores with neighbouring threads on neighbouring
-// addresses, each element in a row padded to 144 bytes so that eight
-// threads reading 16 bytes of eight rows hit 32 distinct banks.
+// addresses, each element in a row padded by 16 bytes (144 bytes at eight
+// words, 208 at twelve: NW + 1 pieces of 16 bytes, an odd number) so that
+// eight threads reading 16 bytes of eight rows hit 32 distinct banks.
 #pragma once
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#ifndef COSNARKS_NW
+#define COSNARKS_NW 8
+#endif
+
 namespace cosnarks {
 
-constexpr int NW = 8;   // 32-bit words per element
-constexpr int NL = 16;  // 16-bit limbs per element at the boundary
+constexpr int NW = COSNARKS_NW;  // 32-bit words per element
+constexpr int NL = 2 * NW;       // 16-bit limbs per element at the boundary
+static_assert(NW == 8 || NW == 12, "the kernels are built for 8 or 12 words");
 
-// Field constants, passed by value to every kernel (68 bytes).
+// Field constants, passed by value to every kernel (8 NW + 4 bytes).
 struct FieldParams {
   uint32_t p[NW];
   uint32_t one[NW];  // R mod p: Montgomery one
@@ -82,7 +90,7 @@ __device__ __forceinline__ Fe fe_select(bool c, const Fe& a, const Fe& b) {
   return c ? a : b;
 }
 
-// t + top * 2^256 (< 2p) -> canonical, subtracting p once when needed.
+// t + top * 2^(32 NW) (< 2p) -> canonical, subtracting p once when needed.
 __device__ __forceinline__ Fe fe_reduce_once(const uint32_t* t, uint32_t top,
                                              const FieldParams& F) {
   Fe d;
@@ -143,9 +151,9 @@ __device__ __forceinline__ Fe fe_neg(const Fe& a, const FieldParams& F) {
   return fe_sub(fe_zero(), a, F);
 }
 
-// Montgomery product a*b*2^-256 mod p: CIOS over 32-bit words with
-// 32x32->64-bit multiplies, then one conditional subtraction (p < 2^254,
-// so the running value stays below 2p).
+// Montgomery product a*b*2^-(32 NW) mod p: CIOS over 32-bit words with
+// 32x32->64-bit multiplies, then one conditional subtraction (the running
+// value stays below 2p, its top word in t[NW]).
 __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b,
                                      const FieldParams& F) {
   uint32_t t[NW + 2];
@@ -188,8 +196,8 @@ inline unsigned int blocks_for(int64_t total) {
 
 // ---- tiles staged through shared memory (K1-K4) --------------------------
 
-constexpr int kPieces = NL * 8 / 16;      // 16-byte pieces per element: 8
-constexpr int kRowBytes = NL * 8 + 16;    // padded shared-memory row: 144
+constexpr int kPieces = NL * 8 / 16;    // 16-byte pieces per element: NW
+constexpr int kRowBytes = NL * 8 + 16;  // padded shared-memory row: 144, 208
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -256,11 +264,20 @@ __device__ __forceinline__ void fe_to_row(unsigned char* row, const Fe& a) {
         make_uint4(a.w[i] & 0xFFFFu, 0u, a.w[i] >> 16, 0u);
 }
 
-// Let Kernel take up to `bytes` of dynamic shared memory on the current
-// device, once per device (the launching wrapper runs on the host's hot
-// path).
-template <auto Kernel>
+// The most dynamic shared memory a block may opt in to on Hopper.
+constexpr int kMaxDynamicSmem = 227 * 1024;
+
+// Let Kernel take up to `bytes` (at most kMaxDynamicSmem) of dynamic shared
+// memory on the current device, once per device (the launching wrapper runs
+// on the host's hot path). The width is a template argument so that the
+// instance's name differs between the 8- and 12-word libraries: a static
+// local of an inline function is one object per process (a GNU unique
+// symbol), and the kernels have the same names at both widths, so without
+// it the library loaded second would find its flags set and skip the
+// opt-in.
+template <auto Kernel, int kWords = NW>
 inline cudaError_t allow_dynamic_smem(int bytes) {
+  if (bytes > kMaxDynamicSmem) bytes = kMaxDynamicSmem;
   static bool done[64] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);

@@ -1,6 +1,6 @@
 // Slots of a group of threads that shares one point (K2, K3, K4).
 //
-// A group keeps its point's field elements as eight 32-bit words in shared
+// A group keeps its point's field elements as NW 32-bit words in shared
 // memory, one slot each. In a layer of independent products every lane
 // picks its operands by its index, computes one product with fe_mul and
 // writes it to a slot of its own; the group then meets at __syncwarp on its
@@ -15,17 +15,22 @@ namespace cosnarks {
 
 __device__ __forceinline__ Fe get(const uint32_t* S, int i) {
   const uint4* p = reinterpret_cast<const uint4*>(S + i * NW);
-  const uint4 lo = p[0], hi = p[1];
   Fe r;
-  r.w[0] = lo.x; r.w[1] = lo.y; r.w[2] = lo.z; r.w[3] = lo.w;
-  r.w[4] = hi.x; r.w[5] = hi.y; r.w[6] = hi.z; r.w[7] = hi.w;
+#pragma unroll
+  for (int q = 0; q < NW / 4; ++q) {
+    const uint4 v = p[q];
+    r.w[4 * q] = v.x; r.w[4 * q + 1] = v.y;
+    r.w[4 * q + 2] = v.z; r.w[4 * q + 3] = v.w;
+  }
   return r;
 }
 
 __device__ __forceinline__ void put(uint32_t* S, int i, const Fe& a) {
   uint4* p = reinterpret_cast<uint4*>(S + i * NW);
-  p[0] = make_uint4(a.w[0], a.w[1], a.w[2], a.w[3]);
-  p[1] = make_uint4(a.w[4], a.w[5], a.w[6], a.w[7]);
+#pragma unroll
+  for (int q = 0; q < NW / 4; ++q)
+    p[q] = make_uint4(a.w[4 * q], a.w[4 * q + 1], a.w[4 * q + 2],
+                      a.w[4 * q + 3]);
 }
 
 // Entry k (0 <= k < 8) of up to eight slot indices below 256, packed in one

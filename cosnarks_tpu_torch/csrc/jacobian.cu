@@ -6,7 +6,7 @@
 // P = inf -> Q, Q = inf -> P (the last select wins); dbl-2009-l.
 //
 // What bounds it on the card: latency. By the roofline it is bytes-bound
-// (9 or 6 coordinates of 128 bytes against 16 or 7 field products), but the
+// (9 or 6 coordinates of 16 NW bytes against 16 or 7 field products), but the
 // main path launches it on single points (curve.scalar_mul), where the
 // whole launch is the formula's chain of products. One thread per point
 // runs that chain serially, 16 products for an add and 7 for a double, and
@@ -15,7 +15,7 @@
 //
 // Design: a group of four threads per point, eight points to a warp. The
 // block stages its points' coordinates through shared memory (field.cuh
-// tile_stage: coalesced 16-byte cp.async copies into 144-byte rows), and
+// tile_stage: coalesced 16-byte cp.async copies into padded rows), and
 // each group converts its point's coordinates to 32-bit words in its slots.
 // The group then runs the formula layer by layer: in a layer each lane
 // computes one of the layer's independent products with fe_mul, its
@@ -43,7 +43,7 @@ constexpr int kGroup = 4;                   // threads per point
 constexpr int kBlock = 128;                 // threads per block
 constexpr int kPoints = kBlock / kGroup;    // points per block
 constexpr int kSlots = 22;                  // field elements per point
-constexpr int kPointWords = kSlots * NW + 4;  // padded: 720 bytes
+constexpr int kPointWords = kSlots * NW + 4;  // padded: 720, 1072 bytes
 constexpr int kRowsBytes = 6 * kPoints * kRowBytes;
 constexpr int kSmem = kRowsBytes + kPoints * kPointWords * 4;
 

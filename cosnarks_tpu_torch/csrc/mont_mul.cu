@@ -1,12 +1,15 @@
-// K1: batched Montgomery multiplication, out = a*b*2^-256 mod p.
+// K1: batched Montgomery multiplication, out = a*b*2^-(32 NW) mod p, built
+// at NW = 8 and 12 words (field.cuh).
 //
 // Replaces _mul_call / _mul_call_lm of cosnarks_tpu/ff/pallas_mont.py.
 //
-// What bounds it on the card: bytes. 384 bytes cross the int64 limb
-// boundary per product (two 128-byte operands in, one out) against ~270
-// 32-bit multiplies, so an H100 is bytes-bound by about 7x, and the design
-// is about moving those bytes at the card's rate. A thread that loads its
-// own element as sixteen 8-byte limbs puts neighbouring threads 128 bytes
+// What bounds it on the card: bytes. 48 NW bytes cross the int64 limb
+// boundary per product (two 16 NW-byte operands in, one out: 384 at eight
+// words, 576 at twelve) against 4 NW^2 + NW 32-bit multiplies (264, 588:
+// a 32x32->64 product is a lo and a hi multiply), so an H100 is
+// bytes-bound by about 7x and 5x, and the design is about moving those
+// bytes at the card's rate. A thread that loads its own
+// element as 2 NW 8-byte limbs puts neighbouring threads 16 NW bytes
 // apart: every warp-wide access touches 32 lines for 256 useful bytes, and
 // its stores reach L2 as partial sectors (30 % of the byte bound at 2^20).
 //
@@ -15,17 +18,18 @@
 // ff/mont_kernel.py, picks the tile and the number of blocks). Both operand
 // tiles are contiguous; the block copies them into shared memory with
 // 16-byte cp.async copies, neighbouring threads on neighbouring addresses,
-// each element in a 144-byte row (field.cuh tile_stage), so each thread's
-// 16-byte reads of its own rows are free of bank conflicts. Copies are
-// double-buffered: the next tile's are in flight while this tile is
-// multiplied. Each thread packs its element's limbs into eight words, runs
-// fe_mul's CIOS in registers and writes its sixteen output limbs over its
+// each element in a row padded by 16 bytes (field.cuh tile_stage), so
+// each thread's 16-byte reads of its own rows are free of bank conflicts.
+// Copies are double-buffered: the next tile's are in flight while this
+// tile is multiplied. Each thread packs its element's limbs into NW words, runs
+// fe_mul's CIOS in registers and writes its 2 NW output limbs over its
 // operand-a row; the block then stores the tile with coalesced 16-byte
 // stores. The ragged last tile is masked.
 //
 // cp.async and not a 1-D TMA bulk copy: one bulk copy of a tile leaves its
-// 128-byte rows unpadded, where eight threads reading 16 bytes of eight rows
-// hit the same four banks; padded rows would take one bulk copy per element.
+// rows unpadded (128 or 192 bytes), where eight threads reading 16 bytes of
+// eight rows hit the same four or eight banks; padded rows would take one
+// bulk copy per element.
 #include "field.cuh"
 
 using namespace cosnarks;

@@ -12,8 +12,8 @@
 // Flags per (t, lane): bit0 changed (a new segment starts: run := operand,
 // or at level 0 the identity when invalid), bit1 valid, bit2 save-prefix
 // (prefix := run before this step). Layouts, limb-major with lanes
-// contiguous: operands (limbs, K, L), flags (K, L), buf (16, K, L), run /
-// prefix (16, L). The limbs equal ec_kernels.fold_plain's.
+// contiguous: operands (limbs, K, L), flags (K, L), buf (NL, K, L), run /
+// prefix (NL, L). The limbs equal ec_kernels.fold_plain's.
 //
 // What bounds it on the card: by the roofline, bytes (a step reads 2-3
 // operand coordinates and writes one dumped point per lane, against 11-12
@@ -51,10 +51,10 @@ enum : int {
   RUN0 = 0, RUN1 = 3, PRE = 6, OPQ = 9, PROD = 12,
   kSlots = PROD + kRcbProducts
 };
-constexpr int kLaneWords = kSlots * NW + 4;  // padded: 656 bytes
+constexpr int kLaneWords = kSlots * NW + 4;  // padded: 656, 976 bytes
 
 // int64 words staged per lane and step: the operand (three coordinates of
-// 16 limbs, or two of 8 packed words), then the flags.
+// NL limbs, or two of NW packed words), then the flags.
 template <bool kProjQ>
 constexpr int kStageRows = kProjQ ? 3 * NL + 1 : 2 * NW + 1;
 
@@ -64,22 +64,24 @@ constexpr int smem_bytes(int lanes) {
 }
 
 // Store the point at slot s of each of the block's n lanes to
-// x/y/z[limb * stride + off + j]: a thread takes half a coordinate of one
-// lane, so neighbouring threads store neighbouring words.
+// x/y/z[limb * stride + off + j]: a thread takes four words of a
+// coordinate of one lane (a half at NW = 8, a third at 12), so
+// neighbouring threads store neighbouring words.
 __device__ __forceinline__ void store_lanes(const uint32_t* slots, int s,
                                             int n, int64_t* x, int64_t* y,
                                             int64_t* z, int64_t off,
                                             int64_t stride) {
-  for (int c = threadIdx.x; c < 6 * n; c += blockDim.x) {
-    const int j = c % n, coord = c / n / 2, half = c / n % 2;
+  constexpr int kParts = NW / 4;  // 4-word parts of a coordinate
+  for (int c = threadIdx.x; c < 3 * kParts * n; c += blockDim.x) {
+    const int j = c % n, coord = c / n / kParts, part = c / n % kParts;
     const uint4 v = reinterpret_cast<const uint4*>(
-        slots + j * kLaneWords + (s + coord) * NW)[half];
+        slots + j * kLaneWords + (s + coord) * NW)[part];
     int64_t* dst = (coord == 0 ? x : (coord == 1 ? y : z)) + off + j;
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      dst[(8 * half + 2 * i) * stride] = w[i] & 0xFFFFu;
-      dst[(8 * half + 2 * i + 1) * stride] = w[i] >> 16;
+      dst[(8 * part + 2 * i) * stride] = w[i] & 0xFFFFu;
+      dst[(8 * part + 2 * i + 1) * stride] = w[i] >> 16;
     }
   }
 }
@@ -218,8 +220,9 @@ static cudaError_t launch(int threads, int blocks, cudaStream_t stream,
 }
 
 // group: threads per fold lane (2 or 8, the two ec_kernels.FOLD_GEOMETRY
-// picks); threads a block (a multiple of 32, at most 256); blocks: enough
-// for L lanes (ec_kernels.fold_geometry).
+// picks); threads a block (a multiple of 32, at most 256, and at twelve
+// words at most 128 in groups of 2, for shared memory); blocks: enough for
+// L lanes (ec_kernels.fold_geometry).
 extern "C" int cosnarks_msm_fold(int proj_q, const int64_t* qx,
                                  const int64_t* qy, const int64_t* qz,
                                  const int64_t* flags, int64_t* bx,
@@ -231,6 +234,8 @@ extern "C" int cosnarks_msm_fold(int proj_q, const int64_t* qx,
                                  void* stream) {
   if (b3 <= 0 || K <= 0 || (group != 2 && group != 8) || threads <= 0 ||
       threads > kMaxThreads || threads % 32 != 0 ||
+      (proj_q ? smem_bytes<true>(threads / group)
+              : smem_bytes<false>(threads / group)) > kMaxDynamicSmem ||
       static_cast<int64_t>(blocks) * (threads / group) < L) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -6,7 +6,7 @@
 // and runs curve._mul_b3's double/add chain.
 //
 // What bounds it on the card: by the roofline, bytes (6-9 coordinates of
-// 128 bytes against 8-12 field products). In practice latency: the main
+// 16 NW bytes against 8-12 field products). In practice latency: the main
 // path launches it mostly on 1-32 points (the Horner combine's doubles and
 // adds, the last fold levels), where the launch is the formula's chain of
 // products, 12, 11 or 8 long for one thread per point; and at its large
@@ -16,7 +16,7 @@
 // Design: a group of G threads per point (ec_kernels.proj_geometry: 8 up to
 // 4096 points, 2 or 4 above, from scripts/torch_rcb_group_sweep.py). The
 // block stages its points' coordinates through shared memory (field.cuh
-// tile_stage: coalesced 16-byte cp.async copies into 144-byte rows), each
+// tile_stage: coalesced 16-byte cp.async copies into padded rows), each
 // group converts its point's coordinates into 32-bit words in its slots,
 // and runs the formula in layers of independent products (rcb_group.cuh: 2,
 // 2 and 3 layers for the add, the madd and the double). RCB is complete, so
@@ -37,7 +37,7 @@ namespace {
 constexpr int kMaxThreads = 256;
 // Slots of one point: P, Q (3 coordinates, or x2, y2), the products.
 enum : int { SP = 0, SQ = 3, SPR = 6, kSlots = SPR + kRcbProducts };
-constexpr int kPointWords = kSlots * NW + 4;  // padded: 464 bytes
+constexpr int kPointWords = kSlots * NW + 4;  // padded: 464, 688 bytes
 
 constexpr int smem_bytes(int points) {
   return points * (6 * kRowBytes + kPointWords * 4);
@@ -118,7 +118,8 @@ static cudaError_t launch(int threads, int blocks, cudaStream_t stream,
 }
 
 // group: threads per point (2, 4 or 8); threads a block (a multiple of 32, at
-// most 256); blocks: enough for total points (ec_kernels.proj_geometry).
+// most 256, and at twelve words at most 128 in groups of 2, for shared
+// memory); blocks: enough for total points (ec_kernels.proj_geometry).
 extern "C" int cosnarks_proj_op(int op, const int64_t* x1, const int64_t* y1,
                                 const int64_t* z1, const int64_t* x2,
                                 const int64_t* y2, const int64_t* z2,
@@ -129,6 +130,7 @@ extern "C" int cosnarks_proj_op(int op, const int64_t* x1, const int64_t* y1,
   if (op < 0 || op > 3 || b3 <= 0 ||
       (group != 2 && group != 4 && group != 8) ||
       threads <= 0 || threads > kMaxThreads || threads % 32 != 0 ||
+      smem_bytes(threads / group) > kMaxDynamicSmem ||
       static_cast<int64_t>(blocks) * (threads / group) < total) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,8 +1,12 @@
 """K2–K6: the G1 point kernels on Hopper, and their plain versions.
 
-All of them compute over BN254-sized prime fields (sixteen 16-bit limbs per
-coordinate, eight 32-bit words inside the kernel) with canonical values at
-every step, so their output limbs equal the plain versions' exactly. The
+K2-K4 are built for two field widths (`_build.WIDE_KERNELS`): sixteen
+16-bit limbs per coordinate, eight 32-bit words inside the kernel (BN254
+G1), and twenty-four limbs, twelve words (BLS12-381 G1); each wrapper
+launches the build of its curve's width and counts its launches under
+(words, op). K5 and K6 are built at eight words only and raise on a
+24-limb field. All compute with canonical values at every step, so their
+output limbs equal the plain versions' exactly. The
 field arithmetic they share is csrc/field.cuh, the curve formulas
 csrc/point.cuh. K2, K3 and K4 give each point (or fold lane) a group of
 threads that runs the formula's field products in layers, one product per
@@ -57,9 +61,10 @@ K6 — the weighted bucket reduction sum_j (j+1) S_j per window
 What bounds them on the card: by the roofline, bytes for K2-K5, operations
 for K6 (the sum needs ~2W adds per window over W points read; its ladders do
 ~1.25 W log2(W/8), 6.1-7.3x that). At the int64 limb boundary a coordinate
-is 128 bytes, and moving a point op's 5-9 coordinates (K2, K3, K5) or a fold
-step's operands and dumped sum (K4) takes the card longer than their 8-16
-field products of ~260 32-bit multiplies each. In practice they run far
+is 128 bytes (192 at twelve words), and moving a point op's 5-9
+coordinates (K2, K3, K5) or a fold step's operands and dumped sum (K4)
+takes the card longer than their 8-16 field products of 264 32-bit
+multiplies each (588 at twelve words). In practice they run far
 above their bounds (PERF.md's kernel table): they are latency- and
 occupancy-bound. One thread per point or lane runs the formula's products
 as one serial chain and keeps ~30 field elements live (130-184 registers,
@@ -70,10 +75,10 @@ window on 132 SMs.
 
 Dispatch: CPU tensors take the plain versions (the formulas of
 :mod:`.curve` over :class:`PlainFqOps`); CUDA tensors launch or raise.
-Each `*_launch` wrapper counts its launches per op in `.launches[op]`
-(K6, which has one op, per bucket width W) and their batch sizes in
-`.sizes[(op, bucket)]` (points, fold lanes L, or windows for K6; see
-`mont_kernel.count`).
+Each `*_launch` wrapper counts its launches per width and op in
+`.launches[(words, op)]` (K6, which has one op, per bucket width W) and
+their batch sizes in `.sizes[((words, op), bucket)]` (points, fold lanes
+L, or windows for K6; see `mont_kernel.count`).
 """
 
 from __future__ import annotations
@@ -84,7 +89,7 @@ import torch
 
 from .. import _build
 from ..ff.mont_kernel import (check_aligned, check_operands, count,
-                              field_params, launch, ptr)
+                              field_params, field_words, launch, ptr)
 from . import curve
 from .ops import PlainFqOps
 
@@ -101,6 +106,16 @@ def _b3(spec) -> int:
     if not isinstance(spec.b, int) or not 0 < b3 <= 64:
         raise ValueError(f"the point kernels take small-b curves, not {spec}")
     return b3
+
+
+def _eight_words_only(spec, kernel: str) -> None:
+    """Raise unless `spec`'s field is one of eight 32-bit words: `kernel`
+    (K5 or K6) has no twelve-word build. Its wrappers call this before
+    anything else."""
+    if field_words(spec.ops.field) != 8:
+        raise ValueError(f"{kernel} is built for 8-word (16-limb) fields "
+                         f"only; {spec.name} needs the missing 12-word "
+                         f"(24-limb) build")
 
 
 def _flatten(coords, n):
@@ -154,13 +169,14 @@ def jacobian_launch(spec, op: int, coords):
     if total == 0:
         return out
     args = list(coords) + [None] * (6 - len(coords))
-    lib = _build.load("jacobian")
+    words = field_words(spec.ops.field)
+    lib = _build.load("jacobian", words)
     with torch.cuda.device(coords[0].device):
         launch(lib.cosnarks_jacobian, ctypes.c_int(op),
                *[ptr(a) if a is not None else None for a in args],
                *[ptr(o) for o in out], ctypes.c_int64(total),
                field_params(spec.ops.field))
-    count(jacobian_launch, op, total)
+    count(jacobian_launch, (words, op), total)
     return out
 
 
@@ -305,7 +321,8 @@ def proj_launch(spec, op: int, coords, valid=None):
         return out
     args = list(coords) + [None] * (6 - len(coords))
     group, threads, blocks = proj_geometry(total, op)
-    lib = _build.load("proj_op")
+    words = field_words(spec.ops.field)
+    lib = _build.load("proj_op", words)
     with torch.cuda.device(device):
         launch(lib.cosnarks_proj_op, ctypes.c_int(op),
                *[ptr(a) if a is not None else None for a in args],
@@ -314,7 +331,7 @@ def proj_launch(spec, op: int, coords, valid=None):
                ctypes.c_int(_b3(spec)), ctypes.c_int(group),
                ctypes.c_int(threads), ctypes.c_int(blocks),
                field_params(spec.ops.field))
-    count(proj_launch, op, total)
+    count(proj_launch, (words, op), total)
     return out
 
 
@@ -407,8 +424,8 @@ def fold_plain(spec, q, flags, K: int, proj_q: bool):
 def fold_launch(spec, q, flags, K: int, proj_q: bool):
     """Launch K4. q: 2 packed (n/2, K, L) coordinate tensors (level 0) or
     3 unpacked (n, K, L) ones (proj_q); flags (K, L) int64. Besides
-    `count`'s buckets, `.shapes[(mode, L, K)]` counts launches by exact
-    shape."""
+    `count`'s buckets, `.shapes[((words, proj_q), L, K)]` counts launches
+    by exact shape."""
     n = spec.ops.field.nlimbs
     device = flags.device
     L = flags.shape[1]
@@ -431,7 +448,8 @@ def fold_launch(spec, q, flags, K: int, proj_q: bool):
         return tuple(bufs), tuple(lanes[:3]), tuple(lanes[3:])
     qs = list(q) + [None] * (3 - len(q))
     group, threads, blocks = fold_geometry(L)
-    lib = _build.load("msm_fold")
+    words = field_words(spec.ops.field)
+    lib = _build.load("msm_fold", words)
     with torch.cuda.device(device):
         launch(lib.cosnarks_msm_fold, ctypes.c_int(int(proj_q)),
                *[ptr(a) if a is not None else None for a in qs], ptr(flags),
@@ -440,7 +458,7 @@ def fold_launch(spec, q, flags, K: int, proj_q: bool):
                ctypes.c_int(_b3(spec)), ctypes.c_int(group),
                ctypes.c_int(threads), ctypes.c_int(blocks),
                field_params(spec.ops.field))
-    count(fold_launch, int(proj_q), L, shape=(L, K))
+    count(fold_launch, (words, int(proj_q)), L, shape=(L, K))
     return tuple(bufs), tuple(lanes[:3]), tuple(lanes[3:])
 
 
@@ -485,6 +503,7 @@ def madd_launch(spec, coords, valid=None):
     """Launch K5 on 5 flat contiguous (total, n) coordinates (x1, y1, z1,
     x2, y2), masked when a (total,) int64 validity mask is given; returns
     the 3 output coordinates."""
+    _eight_words_only(spec, "K5")
     n = spec.ops.field.nlimbs
     device = coords[0].device
     if len(coords) != 5:
@@ -505,7 +524,7 @@ def madd_launch(spec, coords, valid=None):
                ptr(valid) if valid is not None else None,
                *[ptr(o) for o in out], ctypes.c_int64(total),
                field_params(spec.ops.field))
-    count(madd_launch, mode, total)
+    count(madd_launch, (8, mode), total)
     return out
 
 
@@ -585,6 +604,7 @@ def wreduce_plain(spec, buckets):
 def wreduce_launch(spec, buckets):
     """Launch K6 on 3 contiguous (nwin, W, n) bucket coordinates; returns
     3 x (nwin, n)."""
+    _eight_words_only(spec, "K6")
     n = spec.ops.field.nlimbs
     device = buckets[0].device
     check_operands(buckets, n, device)
@@ -605,7 +625,7 @@ def wreduce_launch(spec, buckets):
                *[ptr(x) for x in out], ptr(scratch), ctypes.c_int64(nwin),
                ctypes.c_int64(W), ctypes.c_int(_b3(spec)),
                field_params(spec.ops.field))
-    count(wreduce_launch, W, nwin)
+    count(wreduce_launch, (8, W), nwin)
     return tuple(out)
 
 

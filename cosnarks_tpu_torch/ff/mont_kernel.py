@@ -7,10 +7,11 @@ sublanes; here one kernel serves every batch size, from the 3 products of
 an Fq2 multiply to the 2^15-2^17 of an NTT stage or a G2 MSM step.
 
 What bounds it on the card: memory. The int64 limb boundary moves 384 bytes
-per product (two 128-byte inputs, one 128-byte output) for ~270 32-bit
-multiplies, so an H100 (3.35 TB/s, 132 SMs x 64 IMAD/clock) is
-bytes-bound by ~7x. So the kernel's task is to move those bytes at the
-card's rate; one thread per element, loading its limbs 8 bytes at a time
+per product (two 128-byte inputs, one 128-byte output) for 264 32-bit
+multiplies at eight words (BN254, BLS12-381 Fr), 576 bytes for 588 at
+twelve (BLS12-381 Fq), so an H100 (3.35 TB/s, 132 SMs x 64 IMAD/clock) is
+bytes-bound by ~7x and ~5x. So the kernel's task is to move those bytes at
+the card's rate; one thread per element, loading its limbs 8 bytes at a time
 128 bytes from its neighbours', reaches 30 % of it (PERF.md).
 
 Kernel (csrc/mont_mul.cu): a persistent grid of `blocks` blocks walks over
@@ -19,14 +20,16 @@ tiles of `tile` consecutive elements, block b taking tiles b, b + blocks,
 16-byte cp.async copies (double-buffered, so the next tile's copies overlap
 this tile's products), each thread runs one CIOS product in registers on
 32-bit words, and the block stores the tile with coalesced 16-byte stores.
-R stays 2^256, so the output limbs equal `mul_plain`'s exactly.
+R stays 2^(16 nlimbs), so the output limbs equal `mul_plain`'s exactly.
+The kernel is built once per width (`_build.load("mont_mul", words)`);
+`mul` launches the build of its field's width.
 `mul_geometry` picks tile and blocks, and `mul_tiles` spells out the walk
 that the kernel makes, so a CPU test can check that it covers every element
 once.
 
 Dispatch: CPU tensors take `mul_plain`; CUDA tensors launch the kernel or
-raise. `mul.launches[0]` counts launches and `mul.sizes` their batch sizes
-(see `count`).
+raise. `mul.launches[(words, 0)]` counts launches at each width and
+`mul.sizes` their batch sizes (see `count`).
 """
 
 from __future__ import annotations
@@ -41,8 +44,8 @@ from .. import _build
 from .mont import mul_plain
 from .spec import Field
 
-__all__ = ["mul", "mul_plain", "field_params", "count", "size_bucket",
-           "mul_geometry", "mul_tiles"]
+__all__ = ["mul", "mul_plain", "field_params", "field_words", "count",
+           "size_bucket", "mul_geometry", "mul_tiles"]
 
 _count_lock = threading.Lock()
 
@@ -60,7 +63,8 @@ def count(wrapper, mode: int, total: int, shape=None):
     count per mode (op) of the kernel, `sizes` the histogram of the
     launches' batch sizes (`total`: products, points, fold lanes or
     windows), `shapes` the exact launch shapes of a wrapper that files
-    them."""
+    them. The kernel wrappers pass mode = (words, op), so the two widths
+    of a kernel count apart."""
     with _count_lock:
         wrapper.launches[mode] = wrapper.launches.get(mode, 0) + 1
         key = (mode, size_bucket(total))
@@ -70,15 +74,24 @@ def count(wrapper, mode: int, total: int, shape=None):
             wrapper.shapes[key] = wrapper.shapes.get(key, 0) + 1
 
 
+def field_words(field: Field) -> int:
+    """32-bit words per element of `field` in the kernels: 8 for 16-limb
+    fields (BN254, BLS12-381 Fr), 12 for 24-limb ones (BLS12-381 Fq); the
+    kernels are built for these two widths."""
+    if field.nlimbs not in (16, 24):
+        raise ValueError(f"CUDA kernels take 16- or 24-limb fields, not "
+                         f"{field}")
+    return field.nlimbs // 2
+
+
 def field_params(field: Field):
-    """The kernels' FieldParams block: p and R mod p as eight 32-bit words
-    each, then -p^-1 mod 2^32 (csrc/field.cuh)."""
-    if field.nlimbs != 16:
-        raise ValueError(f"CUDA kernels take 256-bit fields, not {field}")
-    words = [(field.p >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
-    words += [(field.R >> (32 * i)) & 0xFFFFFFFF for i in range(8)]
+    """The kernels' FieldParams block: p and R mod p as NW 32-bit words
+    each, then -p^-1 mod 2^32 (csrc/field.cuh), NW = field_words(field)."""
+    nw = field_words(field)
+    words = [(field.p >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
+    words += [(field.R >> (32 * i)) & 0xFFFFFFFF for i in range(nw)]
     words.append((-pow(field.p, -1, 1 << 32)) % (1 << 32))
-    return (ctypes.c_uint32 * 17)(*words)
+    return (ctypes.c_uint32 * (2 * nw + 1))(*words)
 
 
 def check_operands(tensors, nlimbs: int, device: torch.device):
@@ -119,31 +132,37 @@ def ptr(t: torch.Tensor):
 
 
 # Elements per tile (one per thread of a block) and resident blocks per SM
-# (a block holds two stages of two tiles in 144-byte rows, 72 KB at a tile
-# of 128). scripts/torch_k1_tile_sweep.py timed tiles of 64-256 at 1-6
-# blocks per SM on an H100: 128 x 1 was the fastest or within 1.4 % of it
-# at 2^15, 2^17 and 2^20 products.
+# (a block holds two stages of two tiles in padded rows: 72 KB at a tile of
+# 128 and eight words, 104 KB at twelve). scripts/torch_k1_tile_sweep.py
+# timed tiles of 64-256 at 1-6 blocks per SM on an H100 at eight words:
+# 128 x 1 was the fastest or within 1.4 % of it at 2^15, 2^17 and 2^20
+# products. Twelve words take the same geometry.
 MUL_TILE = 128
 MUL_BLOCKS_PER_SM = 1
-ELEMENT_BYTES = 16 * 8  # one element at the int64 limb boundary
+
+
+def element_bytes(words: int = 8) -> int:
+    """One element at the int64 limb boundary: 2 x words limbs of 8 bytes
+    (128 bytes at eight words, 192 at twelve)."""
+    return 2 * words * 8
 
 
 def mul_geometry(total: int, sms: int):
     """(tile, blocks) of K1's persistent grid for `total` products on a
-    card with `sms` SMs: one block per tile up to MUL_BLOCKS_PER_SM blocks
-    per SM."""
+    card with `sms` SMs, at either width: one block per tile up to
+    MUL_BLOCKS_PER_SM blocks per SM."""
     ntiles = -(-total // MUL_TILE)
     return MUL_TILE, min(ntiles, MUL_BLOCKS_PER_SM * sms)
 
 
-def mul_tiles(total: int, tile: int, blocks: int):
+def mul_tiles(total: int, tile: int, blocks: int, words: int = 8):
     """The kernel's walk over the elements, as (block, first, count, nbytes)
     per tile in the order each block takes them: block b takes tiles b,
     b + blocks, ...; a tile covers `count` elements from `first` and copies
     `nbytes` bytes per operand (the last tile is ragged)."""
     ntiles = -(-total // tile)
     return [(blk, t * tile, min(tile, total - t * tile),
-             min(tile, total - t * tile) * ELEMENT_BYTES)
+             min(tile, total - t * tile) * element_bytes(words))
             for blk in range(blocks) for t in range(blk, ntiles, blocks)]
 
 
@@ -162,16 +181,17 @@ def mul(field: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     check_operands((a, b), field.nlimbs, a.device)
     check_aligned((a, b))
     out = torch.empty_like(a)
+    words = field_words(field)
     total = a.numel() // field.nlimbs
     if total == 0:
         return out
     tile, blocks = mul_geometry(total, sm_count(a.device.index))
-    lib = _build.load("mont_mul")
+    lib = _build.load("mont_mul", words)
     with torch.cuda.device(a.device):
         launch(lib.cosnarks_mont_mul, ptr(a), ptr(b), ptr(out),
                ctypes.c_int64(total), ctypes.c_int(tile),
                ctypes.c_int(blocks), field_params(field))
-    count(mul, 0, total)
+    count(mul, (words, 0), total)
     return out
 
 

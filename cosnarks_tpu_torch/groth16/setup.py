@@ -2,12 +2,12 @@
 benchmarks and tests: port of cosnarks_tpu.groth16.setup.
 
 Builds a Groth16Zkey for a squaring-chain circuit (w_{i+1} = w_i^2) of any
-constraint count: public-input binding rows appended to A, the snarkjs
-root-of-unity domain, and h_query in the odd-coset Lagrange basis matching
-the CircomReduction witness map. The toxic waste comes from a seed and is
-discarded. Query points come from batched scalar muls on the device (a
-windowed fixed-base table above 2048 scalars); the zkey can be cached on
-disk.
+constraint count, over BN254 (the default) or BLS12-381: public-input
+binding rows appended to A, the snarkjs root-of-unity domain, and h_query
+in the odd-coset Lagrange basis matching the CircomReduction witness map.
+The toxic waste comes from a seed and is discarded. Query points come from
+batched scalar muls on the device (a windowed fixed-base table above 2048
+scalars); the zkey can be cached on disk.
 """
 
 from __future__ import annotations
@@ -23,7 +23,6 @@ from .. import resolve_device
 from ..ec import curve as ec
 from ..ec import curves
 from ..ff.bigint import ints_to_limbs
-from ..ff.spec import BN254_FQ, BN254_FR
 from ..io.zkey import Groth16Zkey
 from ..poly import ntt
 
@@ -124,12 +123,18 @@ def _to_zkey(pts) -> np.ndarray:
     return arr
 
 
+BN254 = (curves.BN254_G1, curves.BN254_G2)
+BLS12_381 = (curves.BLS12_381_G1, curves.BLS12_381_G2)
+
+
 def synthetic_zkey(n_constraints: int, seed: bytes = b"cosnarks-bench",
-                   n_public: int = 1,
-                   device=None) -> tuple[Groth16Zkey, list[int]]:
-    """Returns (zkey, witness) for the squaring chain with x = 3."""
+                   n_public: int = 1, device=None,
+                   curve_pair=BN254) -> tuple[Groth16Zkey, list[int]]:
+    """Returns (zkey, witness) for the squaring chain with x = 3, over the
+    (G1, G2) curves of `curve_pair` (BN254 or BLS12_381)."""
     device = resolve_device(device)
-    fr, fq = BN254_FR, BN254_FQ
+    g1, g2 = curve_pair
+    fr, fq = g1.scalar_field, g1.ops.field
     p = fr.p
     ncon, npub = n_constraints, n_public
     n_vars = ncon + 2
@@ -169,8 +174,6 @@ def synthetic_zkey(n_constraints: int, seed: bytes = b"cosnarks-bench",
     for i in range(npub + 1):
         A[i] = (A[i] + L[ncon + i]) % p
 
-    g1 = curves.BN254_G1
-    g2 = curves.BN254_G2
     dinv_delta = pow(delta, -1, p)
     dinv_gamma = pow(gamma, -1, p)
 
@@ -244,20 +247,25 @@ def cache_home() -> Path:
     return path
 
 
-def cached_synthetic_zkey(n_constraints: int, cache_dir=None, device=None):
-    """synthetic_zkey(n_constraints), cached as an .npz file."""
+def cached_synthetic_zkey(n_constraints: int, cache_dir=None, device=None,
+                          curve_pair=BN254):
+    """synthetic_zkey(n_constraints, curve_pair=curve_pair), cached as an
+    .npz file named after the curve."""
     cache_dir = Path(cache_dir) if cache_dir is not None else cache_home()
     cache_dir.mkdir(parents=True, exist_ok=True)
-    path = cache_dir / f"synthetic_{n_constraints}.npz"
+    g1 = curve_pair[0]
+    tag = g1.name.removesuffix("_g1")
+    path = cache_dir / f"synthetic_{tag}_{n_constraints}.npz"
     if path.exists():
         data = np.load(path)
         zkey = Groth16Zkey(
-            fq=BN254_FQ, fr=BN254_FR, n_vars=int(data["n_vars"]),
+            fq=g1.ops.field, fr=g1.scalar_field, n_vars=int(data["n_vars"]),
             n_public=int(data["n_public"]),
             domain_size=int(data["domain_size"]),
             **{k: data[k] for k in _ZKEY_ARRAYS})
         return zkey, [int(x) for x in data["witness"]]
-    zkey, w = synthetic_zkey(n_constraints, device=device)
+    zkey, w = synthetic_zkey(n_constraints, device=device,
+                             curve_pair=curve_pair)
     tmp = path.with_suffix(".tmp.npz")
     np.savez(tmp, n_vars=zkey.n_vars, n_public=zkey.n_public,
              domain_size=zkey.domain_size,

@@ -1,10 +1,10 @@
-"""Plain Groth16 verifier (host-side, snarkjs-compatible), BN254: one
-small IC MSM + a 4-pairing product check in python ints."""
+"""Plain Groth16 verifier (host-side, snarkjs-compatible), BN254 and
+BLS12-381: one small IC MSM + a 4-pairing product check in python ints."""
 
 from __future__ import annotations
 
 from ..ec import curves, host
-from ..pairing import bn254
+from ..pairing import bls12_381, bn254
 
 
 def _verify(pairing_mod, g1_spec, vk, proof, public_inputs) -> bool:
@@ -29,3 +29,15 @@ def _verify(pairing_mod, g1_spec, vk, proof, public_inputs) -> bool:
 def verify_bn254(vk: dict, proof: dict, public_inputs: list[int]) -> bool:
     """Checks e(-A, B) * e(alpha, beta) * e(vk_x, gamma) * e(C, delta) == 1."""
     return _verify(bn254, curves.BN254_G1, vk, proof, public_inputs)
+
+
+def verify_bls12_381(vk: dict, proof: dict, public_inputs: list[int]) -> bool:
+    """The same check over BLS12-381."""
+    return _verify(bls12_381, curves.BLS12_381_G1, vk, proof, public_inputs)
+
+
+def verify(vk: dict, proof: dict, public_inputs: list[int]) -> bool:
+    """Curve-dispatching Groth16 verification (snarkjs vkey dicts)."""
+    if vk.get("curve") in ("bls12381", "bls12-381"):
+        return verify_bls12_381(vk, proof, public_inputs)
+    return verify_bn254(vk, proof, public_inputs)

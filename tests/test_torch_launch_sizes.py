@@ -1,24 +1,27 @@
 """The kernel wrappers' launch-size histogram and K1's tile walk, on the CPU.
 
 `mont_kernel.count` files every launch under the power of two at or above
-its batch; a CPU call of any wrapper runs the plain version and counts
+its batch, and the wrappers' modes (words, op) keep the 8- and 12-word
+builds apart; a CPU call of any wrapper runs the plain version and counts
 nothing; `mul_geometry` / `mul_tiles` are the persistent grid that
-csrc/mont_mul.cu walks, and must cover every element exactly once in
-16-byte pieces."""
+csrc/mont_mul.cu walks at either width, and must cover every element
+exactly once in 16-byte pieces; K5 and K6, built at eight words only,
+refuse a 24-limb field before anything else."""
 
 import numpy as np
 import pytest
 import torch
 
 import cosnarks_tpu_torch as ct
+from cosnarks_tpu_torch import _build
 from cosnarks_tpu_torch.ec import ec_kernels as ek
-from cosnarks_tpu_torch.ec.curves import BN254_G1
+from cosnarks_tpu_torch.ec.curves import BLS12_381_G1, BN254_G1
 from cosnarks_tpu_torch.ff import mont_kernel
-from cosnarks_tpu_torch.ff.spec import BN254_FQ
+from cosnarks_tpu_torch.ff.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ
 
 H100_SMS = 132
 SMEM_PER_SM = 227 * 1024  # shared memory a block may use on Hopper
-ROW_BYTES = 144  # csrc/field.cuh kRowBytes
+ROW_BYTES = {8: 144, 12: 208}  # csrc/field.cuh kRowBytes at each width
 MAX_TILE = 256  # csrc/mont_mul.cu kMaxTile
 COUNTERS = (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
             ek.fold_launch, ek.madd_launch, ek.wreduce_launch)
@@ -98,23 +101,66 @@ def test_cpu_call_counts_nothing(name):
     assert [(dict(c.launches), dict(c.sizes)) for c in COUNTERS] == before
 
 
-@pytest.mark.parametrize("total", [1, 3, 127, 128, 1 << 15, 3 * 40960,
-                                   (1 << 20) + 5])
-def test_k1_tile_walk_covers_every_element_once(total):
+@pytest.mark.parametrize("total,words", [
+    pytest.param(total, words,
+                 id=str(total) if words == 8 else f"{total}-{words}words")
+    for words in (8, 12)
+    for total in (1, 3, 127, 128, 1 << 15, 3 * 40960, (1 << 20) + 5)])
+def test_k1_tile_walk_covers_every_element_once(total, words):
     tile, blocks = mont_kernel.mul_geometry(total, H100_SMS)
     assert tile % 32 == 0 and 0 < tile <= MAX_TILE
-    assert mont_kernel.MUL_BLOCKS_PER_SM * 4 * tile * ROW_BYTES \
+    assert mont_kernel.MUL_BLOCKS_PER_SM * 4 * tile * ROW_BYTES[words] \
         <= SMEM_PER_SM
     ntiles = -(-total // tile)
     assert 1 <= blocks <= min(ntiles, mont_kernel.MUL_BLOCKS_PER_SM
                               * H100_SMS)
-    walk = mont_kernel.mul_tiles(total, tile, blocks)
+    walk = mont_kernel.mul_tiles(total, tile, blocks, words)
     assert {blk for blk, *_ in walk} == set(range(blocks))  # none idle
     seen = np.zeros(total, dtype=np.int64)
     for blk, first, count, nbytes in walk:
         assert first % tile == 0 and (first // tile) % blocks == blk
         assert 0 < count <= tile
-        assert nbytes == count * mont_kernel.ELEMENT_BYTES
+        assert nbytes == count * mont_kernel.element_bytes(words)
+        assert nbytes == count * (ROW_BYTES[words] - 16)
         assert nbytes % 16 == 0
         seen[first:first + count] += 1
     assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("field,words", [(BN254_FQ, 8), (BLS12_381_FR, 8),
+                                         (BLS12_381_FQ, 12)],
+                         ids=["bn254_fq", "bls12_381_fr", "bls12_381_fq"])
+def test_launch_modes_tell_the_widths_apart(field, words):
+    """A field's width picks its kernel build, and a launch counted under
+    (words, op) files apart from the other width's."""
+    assert mont_kernel.field_words(field) == words
+    assert len(mont_kernel.field_params(field)) == 2 * words + 1
+    stems = {name for name, w in _build.builds() if w == words}
+    assert stems == (set(_build.KERNELS) if words == 8
+                     else set(_build.WIDE_KERNELS))
+
+    def wrapper():
+        pass
+
+    wrapper.launches, wrapper.sizes = {}, {}
+    mont_kernel.count(wrapper, (words, 0), 3)
+    mont_kernel.count(wrapper, (20 - words, 0), 3)
+    assert wrapper.launches == {(words, 0): 1, (20 - words, 0): 1}
+    assert wrapper.sizes == {((words, 0), 4): 1, ((20 - words, 0), 4): 1}
+
+
+@pytest.mark.parametrize("kernel", ["K5", "K6"])
+def test_k5_k6_refuse_a_24_limb_field(kernel):
+    """K5 and K6 have no 12-word build: their launch wrappers raise on a
+    BLS12-381 G1 field, naming the missing width, before they look at the
+    tensors (these are CPU tensors, which they would refuse later)."""
+    x = torch.zeros((4, 24), dtype=torch.int64)
+    with pytest.raises(ValueError, match="12-word"):
+        if kernel == "K5":
+            ek.madd_launch(BLS12_381_G1, [x] * 5)
+        else:
+            ek.wreduce_launch(BLS12_381_G1,
+                              [torch.zeros((1, 64, 24),
+                                           dtype=torch.int64)] * 3)
+    with pytest.raises(ValueError, match="12-word"):
+        _build.load("jacobian_madd" if kernel == "K5" else "wreduce", 12)

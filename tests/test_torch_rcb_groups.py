@@ -4,7 +4,8 @@
 csrc/rcb_group.cuh runs on a group of threads per point; here it is run
 with plain ops and held limb for limb against the JAX package's
 `curve.proj_add`, `proj_madd` (masked and not) and `proj_double` on seeded
-points with identity, P = Q and P = -Q lanes. `proj_geometry` /
+BN254 and BLS12-381 G1 points (the 8- and 12-word builds run the same
+schedule) with identity, P = Q and P = -Q lanes. `proj_geometry` /
 `fold_geometry` are the launch geometries of csrc/proj_op.cu and
 csrc/msm_fold.cu, and must cover every point or fold lane exactly once
 with whole groups inside one warp."""
@@ -27,7 +28,8 @@ from cosnarks_tpu_torch.ff import mont_kernel
 from cosnarks_tpu_torch.ff.bigint import ints_to_limbs
 
 JSPEC, TSPEC = jcurves.BN254_G1, curves.BN254_G1
-FQ = TSPEC.ops.field
+CURVES = {"bn254": (jcurves.BN254_G1, curves.BN254_G1),
+          "bls12_381": (jcurves.BLS12_381_G1, curves.BLS12_381_G1)}
 MAX_THREADS = 256  # csrc/proj_op.cu and csrc/msm_fold.cu kMaxThreads
 PROJ_GROUPS = (2, 4, 8)  # the group sizes csrc/proj_op.cu is built for
 FOLD_GROUPS = (2, 8)  # and csrc/msm_fold.cu
@@ -67,10 +69,10 @@ def _times(o, x, c: int):
     return acc
 
 
-def _run_schedule(op, inputs):
+def _run_schedule(op, inputs, tspec=TSPEC):
     """The schedule of `op` with plain ops: returns (X3, Y3, Z3)."""
-    o = PlainFqOps(FQ)
-    b3 = 3 * TSPEC.b
+    o = PlainFqOps(tspec.ops.field)
+    b3 = 3 * tspec.b
     sched = ek.RCB_SCHEDULE[op]
     env = dict(zip(sched["in"], inputs))
 
@@ -117,38 +119,40 @@ def test_schedule_layers_are_independent(op):
     assert sum(layers) == PRODUCTS[op]
 
 
-def _points(seed, n):
+def _points(seed, n, jspec=JSPEC):
     """n affine points [k]G (host ints) from a numpy seed."""
-    hc = jhost.host_curve(JSPEC)
+    hc = jhost.host_curve(jspec)
     rng = np.random.default_rng(seed)
     ks = rng.integers(1, 1 << 40, size=n, dtype=np.uint64)
     return [hc.affine_ints(hc.mul(hc.generator, int(k))) for k in ks]
 
 
-def _projective(pts, zs):
+def _projective(pts, zs, fq):
     """Affine points (None: the identity (0 : 1 : 0)) scaled by z ->
     (X, Y, Z) Montgomery limb arrays (numpy, uint32)."""
-    p = FQ.p
+    p = fq.p
     rows = [(0, 1, 0) if pt is None else
             (pt[0] * z % p, pt[1] * z % p, z % p)
             for pt, z in zip(pts, zs)]
-    return tuple(ints_to_limbs([FQ.to_mont_int(r[c]) for r in rows], 16)
+    return tuple(ints_to_limbs([fq.to_mont_int(r[c]) for r in rows],
+                               fq.nlimbs)
                  for c in range(3))
 
 
-def _affine(pts):
-    return tuple(ints_to_limbs([FQ.to_mont_int(pt[c]) for pt in pts], 16)
+def _affine(pts, fq):
+    return tuple(ints_to_limbs([fq.to_mont_int(pt[c]) for pt in pts],
+                               fq.nlimbs)
                  for c in range(2))
 
 
-def _inputs(op, seed):
+def _inputs(op, seed, jspec, fq):
     """The op's inputs on eight lanes, as numpy limb arrays: 0 and 7
     ordinary, 1 P = Q (same coordinates), 2 P = Q (another Z), 3 P = -Q,
     4 P = identity, 5 Q = identity (add), 6 both identities (add);
     the madd's Q is affine on every lane."""
-    hc = jhost.host_curve(JSPEC)
-    a = _points(seed, 8)
-    b = _points(seed + 1, 8)
+    hc = jhost.host_curve(jspec)
+    a = _points(seed, 8, jspec)
+    b = _points(seed + 1, 8, jspec)
     rng = np.random.default_rng(seed + 2)
     zp = [int(z) for z in rng.integers(2, 1 << 62, size=8, dtype=np.uint64)]
     zq = [int(z) for z in rng.integers(2, 1 << 62, size=8, dtype=np.uint64)]
@@ -157,26 +161,30 @@ def _inputs(op, seed):
     Q = [b[0], a[1], a[2], neg, b[4], None, None, b[7]]
     zq[1] = zp[1]
     if op == "double":
-        return _projective(P, zp)
+        return _projective(P, zp, fq)
     if op == "add":
-        return _projective(P, zp) + _projective(Q, zq)
+        return _projective(P, zp, fq) + _projective(Q, zq, fq)
     Q = [q if q is not None else b[i] for i, q in enumerate(Q)]
-    return _projective(P, zp) + _affine(Q)
+    return _projective(P, zp, fq) + _affine(Q, fq)
 
 
-@pytest.mark.parametrize("op", ["add", "madd", "madd masked", "double"])
-def test_schedule_matches_jax(op):
+@pytest.mark.parametrize("op,curve", [
+    pytest.param(op, curve, id=op if curve == "bn254" else f"{op}-{curve}")
+    for curve in ("bn254", "bls12_381")
+    for op in ("add", "madd", "madd masked", "double")])
+def test_schedule_matches_jax(op, curve):
     """The schedule, run with plain ops, equals the JAX package's RCB
     formula limb for limb (masked: P kept where valid is False)."""
+    jspec, tspec = CURVES[curve]
     base = op.split()[0]
-    arrs = _inputs(base, 0x5C4 + len(op))
+    arrs = _inputs(base, 0x5C4 + len(op), jspec, tspec.ops.field)
     got = _run_schedule(base, [torch.from_numpy(x.astype(np.int64))
-                               for x in arrs])
+                               for x in arrs], tspec)
     j = [jnp.asarray(x) for x in arrs]
     if base == "add":
-        ref = jec.proj_add(JSPEC, tuple(j[:3]), tuple(j[3:]))
+        ref = jec.proj_add(jspec, tuple(j[:3]), tuple(j[3:]))
     elif base == "double":
-        ref = jec.proj_double(JSPEC, tuple(j))
+        ref = jec.proj_double(jspec, tuple(j))
     else:
         valid = None
         if op == "madd masked":
@@ -187,7 +195,7 @@ def test_schedule_matches_jax(op):
                                     torch.from_numpy(x.astype(np.int64)))
                         for g, x in zip(P, arrs[:3]))
             valid = jnp.asarray(valid)
-        ref = jec.proj_madd(JSPEC, tuple(j[:3]), tuple(j[3:]), valid)
+        ref = jec.proj_madd(jspec, tuple(j[:3]), tuple(j[3:]), valid)
     for g, r in zip(got, ref):
         assert np.array_equal(g.numpy(), np.asarray(r).astype(np.int64))
 
