@@ -4,19 +4,22 @@
     python3 chip_smoke.py
 
 Phases, one JSON line each; any failure exits non-zero:
-  1. build the kernels from cosnarks_tpu_torch/csrc (nvcc, sm_90a): K1-K4
-     for fields of 8 and of 12 32-bit words, K5 and K6 for 8;
+  1. build the kernels from cosnarks_tpu_torch/csrc (nvcc, sm_90a): K1-K6,
+     each for fields of 8 and of 12 32-bit words;
   2. hold every kernel mode against its plain PyTorch version at main-path
      shapes (exact limb equality), timed on the device beside its bound
      (the plain version with its host launch overhead): K1 at 3, 2^15,
      2^17 and 2^20 products, K2 at 1, 3 and 2^14 points, K3's four modes at
      1, 32 and 2^14 points (edge lanes included), K4's two modes at the
      proofs' L = 40960, 2560 and 160 fold lanes and at L = 160 on edge flag
-     patterns, each on BN254 Fq / G1 (8 words) and on BLS12-381 Fq / G1
-     (12 words, rows marked "w12"); K5 and K6 at their proof or MSM shapes;
-     call K5 through its entry point curve.madd (a broadcast affine Q, a
-     bool mask), and show that a wrapper raises on a bad CUDA input instead
-     of falling back, and K5 / K6 on a 24-limb field;
+     patterns, K5 unmasked and masked at 2^14 points, K6 at the 2^16 / c =
+     13 and 2^20 / c = 15 window shapes and at 2^16 / c = 13 with whole
+     identity segments and with every bucket equal, each on BN254 Fq / G1
+     (8 words) and on BLS12-381 Fq / G1 (12 words, rows marked "w12"), and
+     K6 at 12 words also at the 2^20 / c = 16 shape of phase 4c; call K5
+     through its entry point curve.madd (a broadcast affine Q, a bool
+     mask), and show that a wrapper raises on a bad CUDA input instead of
+     falling back, K6 on a bucket width that is not a power of two;
   3. the main path: a domain-2^16 synthetic zkey, then the 3-party Rep3
      Groth16 prover over run_parties, twice; every party returns the same
      proof, it verifies, and every kernel launched during the warm prove;
@@ -33,6 +36,10 @@ Phases, one JSON line each; any failure exits non-zero:
   4b. the same MSM through the other split, _host_horner(_pippenger_wsums):
      K4 and the K6 weighted bucket reduction on the card, Horner on the host;
      then ten pairs of it and msm(), taking turns at going first;
+  4c. the same two splits on 2^20 BLS12-381 G1 points at c = 16 (16
+     windows x 32768 buckets; c = 15 overflows the top signed digit of a
+     255-bit scalar), K4 and K6 at 12 words, both checked against the
+     host, then three pairs taking turns;
   5. main_path_loss: K1-K3's prover modes timed (and checked) at every
      launch-size bucket of the three proofs, K4's at every (L, K) they
      launched, each at its width, and each mode's loss per proof, sum of
@@ -61,6 +68,14 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 BN_PHASE, BLS_PHASE = "rep3_groth16", "bls12_381_rep3_groth16"
 PROOFS = (BN_PHASE, "shamir_groth16", BLS_PHASE)
+# K6's window shapes (windows, buckets, name) at each width: 2^16 points at
+# c = 13, 2^20 at c = 15, and at 12 words 2^20 at c = 16 (phase 4c)
+K6_SHAPES = {8: ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15")),
+             12: ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15"),
+                  (16, 32768, "2^20/c=16"))}
+# the phases that run K6 through the wsums split, by (words, W)
+WSUMS_PHASES = {(8, 16384): "msm_wsums_2^20",
+                (12, 32768): "msm_wsums_2^20 w12"}
 
 
 class Width:
@@ -214,14 +229,15 @@ def main() -> int:
                 ("K4 fold projective", ek.fold_launch, 1, True)):
             modes[name + w.tag] = (fn, (w.words, op),
                                    w.proof if proved else None)
-    modes.update({
-        "K5 jacobian madd": (ek.madd_launch, (8, ek.MADD), None),
-        "K5 jacobian madd (masked)": (ek.madd_launch, (8, ek.MADD_MASKED),
-                                      None),
-        "K6 wreduce 2^16/c=13": (ek.wreduce_launch, (8, 4096), None),
-        "K6 wreduce 2^20/c=15": (ek.wreduce_launch, (8, 16384),
-                                 "msm_wsums_2^20"),
-    })
+    for w in (W8, W12):
+        modes["K5 jacobian madd" + w.tag] = (ek.madd_launch,
+                                             (w.words, ek.MADD), None)
+        modes["K5 jacobian madd (masked)" + w.tag] = (
+            ek.madd_launch, (w.words, ek.MADD_MASKED), None)
+        for nwin, W, shape in K6_SHAPES[w.words]:
+            modes[f"K6 wreduce {shape}{w.tag}"] = (
+                ek.wreduce_launch, (w.words, W), WSUMS_PHASES.get(
+                    (w.words, W)))
     rows = {}
 
     def check(name, kernel_fn, plain_fn, nbytes, nmuls, iters,
@@ -427,40 +443,109 @@ def main() -> int:
                 del kernel_fn, plain_fn
         return P, Q, lane, valid
 
+    def check_k5(w, P, Q, lane, valid):
+        """K5 at width w and 2^14 points: Jacobian P with P = Q (X1 = x2
+        Z1^2, Y1 = y2 Z1^3) on lanes 1 mod 8, P = -Q on lanes 2 mod 8, P =
+        inf on lanes 3 mod 8; the masked mode drops lanes 0 mod 4. Returns
+        the operands (P, affine Q)."""
+        F, g1, n = w.F, w.g1, P[0].shape[0]
+        Zsq = mont.mul(F, P[2], P[2])
+        Zcu = mont.mul(F, Zsq, P[2])
+        Xs, Ys = mont.mul(F, Q[0], Zsq), mont.mul(F, Q[1], Zcu)
+        PJ = [torch.where((lane % 8 == 1)[:, None] | (lane % 8 == 2)[:, None],
+                          Xs, P[0]),
+              torch.where((lane % 8 == 1)[:, None], Ys,
+                          torch.where((lane % 8 == 2)[:, None],
+                                      mont.neg(F, Ys), P[1])),
+              P[2]]
+        PJ = [x.contiguous() for x in PJ]
+        QA = [Q[0].contiguous(), Q[1].contiguous()]
+        p_fin = (PJ[2] != 0).any(-1)
+        for masked in (False, True):
+            vm = valid if masked else None
+            live = p_fin & (valid != 0) if masked else p_fin
+            mode = "K5 jacobian madd" + (" (masked)" if masked else "") + w.tag
+            check(mode,
+                  lambda vm=vm: ek.madd_launch(g1, PJ + QA, vm),
+                  lambda vm=vm: ek.madd_plain(
+                      g1, tuple(PJ), tuple(QA),
+                      None if vm is None else vm != 0),
+                  8 * n * w.limb_bytes + (n * 8 if masked else 0),
+                  11 * int(live.sum()) * w.muls, 20,
+                  "cosnarks_tpu/ec/pallas_ec.py:157 (_madd_call"
+                  + (", masked)" if masked else ")"),
+                  "cosnarks_tpu_torch/csrc/jacobian_madd.cu",
+                  shape=[n, w.n])
+        return PJ, QA
+
+    def check_k6(w):
+        """K6 at width w at its window shapes, on random projective buckets
+        with identity (0 : 1 : 0) lanes on j = 5 mod 16, and at 2^16 / c =
+        13 with segments 1 and P - 1 of every window all identity and with
+        every bucket the generator (a P = Q add inside each running sum;
+        the result also checked against the host's (W (W + 1) / 2) G)."""
+        g1 = w.g1
+        one = mont.broadcast_one(w.F, (), device=dev)
+        gen_pt = ec.encode_points(g1, [g1.generator], device=dev)
+        hc = host.host_curve(g1)
+        cases = [(nwin, W, shape, None) for nwin, W, shape in
+                 K6_SHAPES[w.words]]
+        cases += [(20, 4096, "2^16/c=13", "identity segments"),
+                  (20, 4096, "2^16/c=13", "all equal")]
+        for nwin, W, shape, pattern in cases:
+            P, group, threads = ek.wreduce_geometry(W, w.words)
+            if pattern == "all equal":
+                bk = [x[0].expand(nwin, W, w.n).contiguous() for x in gen_pt]
+            else:
+                bk = [w.rand_fe(nwin, W) for _ in range(3)]
+                j = torch.arange(W, device=dev)
+                ident = j % 16 == 5
+                if pattern == "identity segments":
+                    seg = j // (W // P)
+                    ident = ident | (seg == 1) | (seg == P - 1)
+                ident = ident[None, :, None]
+                bk = [torch.where(ident, torch.zeros_like(bk[0]), bk[0]),
+                      torch.where(ident, one.expand_as(bk[1]), bk[1]),
+                      torch.where(ident, torch.zeros_like(bk[2]), bk[2])]
+                bk = [x.contiguous() for x in bk]
+            # the bound counts the adds the sum needs: running sums (suffix
+            # sums of S, then their sum), 2(W - 1) per window; work_done is
+            # what the segmented design does
+            adds = 2 * (W - 1)
+            work = ek.wreduce_work(W, P)
+            mode = f"K6 wreduce {shape}{w.tag}"
+            check(mode + (f" ({pattern})" if pattern else ""),
+                  lambda bk=bk: ek.wreduce_launch(g1, bk),
+                  lambda bk=bk: ek.wreduce_plain(g1, tuple(bk)),
+                  (3 * nwin * W + 3 * nwin) * w.limb_bytes,
+                  nwin * 12 * adds * w.muls, 5,
+                  "cosnarks_tpu/ec/pallas_ec.py:192 (_wreduce_call)",
+                  "cosnarks_tpu_torch/csrc/wreduce.cu", shape=[nwin, W],
+                  mode=mode, buckets=pattern or "smoke",
+                  counted={"rcb_adds_per_window": adds,
+                           "field_muls": nwin * 12 * adds},
+                  work_done={**work, "rcb_ops_per_window": sum(
+                      work.values()), "over_counted": sum(work.values())
+                      / adds, "segments": P, "group": group,
+                      "threads": threads})
+            if pattern == "all equal":
+                out = ek.wreduce_launch(g1, bk)
+                got = ec.decode_points(g1, ec.proj_to_jacobian(
+                    g1, tuple(x[:1] for x in out)))[0]
+                if got != hc.affine_ints(hc.mul(hc.generator,
+                                                W * (W + 1) // 2)):
+                    raise AssertionError(f"{mode}: sum of equal buckets "
+                                         "differs from the host")
+            del bk
+
     P, Q, lane, valid = check_k1_k4(W8)
-    check_k1_k4(W12)
+    P12, Q12, lane12, valid12 = check_k1_k4(W12)
     torch.cuda.empty_cache()
     n2 = 1 << 14
     g1 = BN254_G1
-    LIMB_BYTES, MULS = W8.limb_bytes, W8.muls
-
-    # K5 at 2^14 points: Jacobian P with P = Q (X1 = x2 Z1^2, Y1 = y2 Z1^3)
-    # on lanes 1 mod 8, P = -Q on lanes 2 mod 8, P = inf on lanes 3 mod 8;
-    # the masked mode drops lanes 0 mod 4
-    Zsq = mont.mul(F, P[2], P[2])
-    Zcu = mont.mul(F, Zsq, P[2])
-    Xs, Ys = mont.mul(F, Q[0], Zsq), mont.mul(F, Q[1], Zcu)
-    PJ = [torch.where((lane % 8 == 1)[:, None] | (lane % 8 == 2)[:, None],
-                      Xs, P[0]),
-          torch.where((lane % 8 == 1)[:, None], Ys,
-                      torch.where((lane % 8 == 2)[:, None],
-                                  mont.neg(F, Ys), P[1])),
-          P[2]]
-    PJ = [x.contiguous() for x in PJ]
-    QA = [Q[0].contiguous(), Q[1].contiguous()]
-    p_fin = (PJ[2] != 0).any(-1)
-    for masked in (False, True):
-        vm = valid if masked else None
-        live = p_fin & (valid != 0) if masked else p_fin
-        check("K5 jacobian madd" + (" (masked)" if masked else ""),
-              lambda vm=vm: ek.madd_launch(g1, PJ + QA, vm),
-              lambda vm=vm: ek.madd_plain(
-                  g1, tuple(PJ), tuple(QA), None if vm is None else vm != 0),
-              8 * n2 * LIMB_BYTES + (n2 * 8 if masked else 0),
-              11 * int(live.sum()) * MULS, 20,
-              "cosnarks_tpu/ec/pallas_ec.py:157 (_madd_call"
-              + (", masked)" if masked else ")"),
-              "cosnarks_tpu_torch/csrc/jacobian_madd.cu", shape=[n2, 16])
+    PJ, QA = check_k5(W8, P, Q, lane, valid)
+    check_k5(W12, P12, Q12, lane12, valid12)
+    del P12, Q12, lane12, valid12
 
     # K5's entry point, curve.madd: one affine Q broadcast over the batch,
     # unmasked and with a bool mask, launches K5 and equals the plain version
@@ -478,41 +563,14 @@ def main() -> int:
     emit({"phase": "curve_madd", "points": n2, "q": "one, broadcast",
           "masks": [None, "bool"], "k5_launches": launched,
           "max_abs_err": 0})
+    del PJ, QA, q_wide
 
-    # K6 at the 2^16 / c = 13 (20 windows x 4096 buckets) and the
-    # 2^20 / c = 15 (17 x 16384) shapes: random projective buckets with
-    # identity (0 : 1 : 0) lanes on j = 5 mod 16
-    one = mont.broadcast_one(F, (), device=dev)
-    for nwin, W, shape in ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15")):
-        bk = [rand_fe(nwin, W) for _ in range(3)]
-        ident = (torch.arange(W, device=dev) % 16 == 5)[None, :, None]
-        bk = [torch.where(ident, torch.zeros_like(bk[0]), bk[0]),
-              torch.where(ident, one.expand_as(bk[1]), bk[1]),
-              torch.where(ident, torch.zeros_like(bk[2]), bk[2])]
-        bk = [x.contiguous() for x in bk]
-        # the bound counts the adds the sum needs: running sums (suffix sums
-        # of S, then their sum), 2(W - 1) per window; the kernel's ladders
-        # do more, the identity adds past each row's end included
-        H = W // 8
-        lg = H.bit_length() - 1
-        adds = 2 * (W - 1)
-        ladder_adds = 7 * H + 2 * H * lg + W * lg + 2 * 3 * 8 + 1
-        check(f"K6 wreduce {shape}",
-              lambda bk=bk: ek.wreduce_launch(g1, bk),
-              lambda bk=bk: ek.wreduce_plain(g1, tuple(bk)),
-              (3 * nwin * W + 3 * nwin) * LIMB_BYTES,
-              nwin * 12 * adds * MULS, 5,
-              "cosnarks_tpu/ec/pallas_ec.py:192 (_wreduce_call)",
-              "cosnarks_tpu_torch/csrc/wreduce.cu", shape=[nwin, W],
-              counted={"rcb_adds_per_window": adds,
-                       "field_muls": nwin * 12 * adds},
-              work_done={"ladder_rcb_adds_per_window": ladder_adds,
-                         "ladder_doublings_per_window": lg})
-        del bk
-    del Zsq, Zcu, Xs, Ys, PJ, QA
+    check_k6(W8)
+    check_k6(W12)
+    torch.cuda.empty_cache()
 
-    # a CUDA tensor never reaches a plain version: bad inputs raise, and K5
-    # and K6 (built at 8 words only) refuse a 24-limb BLS12-381 field
+    # a CUDA tensor never reaches a plain version: bad inputs raise, and K6
+    # refuses a bucket width that is not a power of two
     refused = []
     a = rand_fe(16)
     for bad in (a[:8].to(torch.int32), a[:16, ::2], a[:8, :8]):
@@ -522,18 +580,14 @@ def main() -> int:
             refused.append(type(e).__name__)
     if len(refused) != 3:
         raise AssertionError("a kernel wrapper accepted a bad CUDA input")
-    wide = W12.rand_fe(64)
-    for name, call in (
-            ("K5", lambda: ek.madd_launch(W12.g1, [wide] * 5)),
-            ("K6", lambda: ek.wreduce_launch(W12.g1, [wide[None]] * 3))):
-        try:
-            call()
-        except ValueError as e:
-            refused.append(f"{name}: {e}")
-        else:
-            raise AssertionError(f"{name} launched on a 24-limb field")
+    try:
+        ek.wreduce_launch(g1, [rand_fe(1, 96)] * 3)
+    except ValueError as e:
+        refused.append(f"K6: {e}")
+    else:
+        raise AssertionError("K6 launched on 96 buckets a window")
     emit({"phase": "wrapper_refuses_bad_input", "raised": refused})
-    del a, wide, P, Q
+    del a, P, Q
     torch.cuda.empty_cache()
     counters = (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
                 ek.fold_launch, ek.madd_launch, ek.wreduce_launch)
@@ -694,27 +748,35 @@ def main() -> int:
 
     # ---- phase 4: bench.py's shape: 2^20-point G1 MSM at c = 15 ----------
     nm = 1 << 20
-    nrng = np.random.default_rng(0xBE7C)
-    r = g1.scalar_field.p
-    k_limbs = np.zeros((nm, 16), dtype=np.uint16)
-    k_limbs[:, :4] = nrng.integers(0, 1 << 16, (nm, 4))  # 64-bit k_i
-    s_limbs = nrng.integers(0, 1 << 16, (nm, 16)).astype(np.uint16)
-    s_limbs[:, 15] &= 0x1FFF  # s_i < 2^253 < r
 
     def ints(limbs):
         raw = limbs.astype("<u2").tobytes()
         return [int.from_bytes(raw[32 * i:32 * i + 32], "little")
                 for i in range(limbs.shape[0])]
 
-    ks, ss = ints(k_limbs), ints(s_limbs)
-    t0 = time.perf_counter()
-    kt = torch.as_tensor(k_limbs.astype(np.int64), device=dev)
-    st = torch.as_tensor(s_limbs.astype(np.int64), device=dev)
-    G = tuple(x[0].expand((nm, 16)) for x in ec.encode_points(
-        g1, [g1.generator], device=dev))
-    pts = ec.to_affine(g1, ec.scalar_mul(g1, G, kt))
-    torch.cuda.synchronize()
-    t_points = time.perf_counter() - t0
+    def msm_inputs(g1, seed, s_top):
+        """2^20 affine points [k_i]G of g1 made on the card (64-bit k_i),
+        scalar limbs s_i (top limb below s_top, so s_i < r), the host's
+        [sum s_i k_i]G, and the seconds the points took."""
+        nrng = np.random.default_rng(seed)
+        k_limbs = np.zeros((nm, 16), dtype=np.uint16)
+        k_limbs[:, :4] = nrng.integers(0, 1 << 16, (nm, 4))  # 64-bit k_i
+        s_limbs = nrng.integers(0, 1 << 16, (nm, 16)).astype(np.uint16)
+        s_limbs[:, 15] &= s_top - 1
+        ks, ss = ints(k_limbs), ints(s_limbs)
+        t0 = time.perf_counter()
+        kt = torch.as_tensor(k_limbs.astype(np.int64), device=dev)
+        st = torch.as_tensor(s_limbs.astype(np.int64), device=dev)
+        G = tuple(x[0].expand((nm, x.shape[-1])) for x in ec.encode_points(
+            g1, [g1.generator], device=dev))
+        pts = ec.to_affine(g1, ec.scalar_mul(g1, G, kt))
+        torch.cuda.synchronize()
+        t_points = time.perf_counter() - t0
+        hc = host.host_curve(g1)
+        r = g1.scalar_field.p
+        expect = hc.affine_ints(hc.mul(
+            hc.generator, sum(s * k for s, k in zip(ss, ks)) % r))
+        return pts, st, expect, t_points
 
     def wall(fn):
         t0 = time.perf_counter()
@@ -722,21 +784,43 @@ def main() -> int:
         torch.cuda.synchronize()
         return res, time.perf_counter() - t0
 
-    def run_msm():
-        return msm.msm(g1, pts, st, c=15)
+    def splits(g1, pts, st, c):
+        """msm() and the other split, _host_horner(_pippenger_wsums)."""
+        return (lambda: msm.msm(g1, pts, st, c=c),
+                lambda: msm._host_horner(
+                    g1, msm._pippenger_wsums(g1, pts, st, c), c))
 
-    def run_wsums():
-        return msm._host_horner(g1, msm._pippenger_wsums(g1, pts, st, 15),
-                                15)
+    def wsums_pairs(g1, pts, st, c, expect, phase, required, pairs):
+        """One counted run of the wsums split (K4, K6 on the card, Horner on
+        the host), checked against the host, then `pairs` pairs of it and
+        msm() taking turns at going first (host speed moves both by tens of
+        percent between calls)."""
+        run_msm, run_wsums = splits(g1, pts, st, c)
+        clear_counts()
+        wout, _ = wall(run_wsums)
+        counts_by_phase[phase] = by_op = read_counts()
+        require_launched(phase, required)
+        if ec.decode_points(g1, tuple(x[None] for x in wout))[0] != expect:
+            raise AssertionError(f"{phase}: wsums + host Horner differs "
+                                 "from the host")
+        wtimes, mtimes = [], []
+        for i in range(pairs):
+            for fn in ((run_wsums, run_msm) if i % 2
+                       else (run_msm, run_wsums)):
+                (wtimes if fn is run_wsums else mtimes).append(wall(fn)[1])
+        return {"c": c, "wsums_horner_s": wtimes, "msm_s": mtimes,
+                "pairs_won_by_wsums": sum(w < m for w, m in zip(wtimes,
+                                                                mtimes)),
+                "points_per_s": nm / min(wtimes), "matches_host": True,
+                "launches_by_mode": by_op}
 
+    pts, st, expect, t_points = msm_inputs(g1, 0xBE7C, 1 << 13)  # < 2^253
+    run_msm, _ = splits(g1, pts, st, 15)
     wall(run_msm)  # warm
     times = []
     for _ in range(3):
         out, t = wall(run_msm)
         times.append(t)
-    hc = host.host_curve(g1)
-    expect = hc.affine_ints(hc.mul(hc.generator,
-                                   sum(s * k for s, k in zip(ss, ks)) % r))
     got = ec.decode_points(g1, tuple(x[None] for x in out))[0]
     if got != expect:
         raise AssertionError("2^20 MSM differs from the host")
@@ -746,25 +830,29 @@ def main() -> int:
 
     # ---- phase 4b: the same MSM, window sums on the card (K4, K6), Horner
     # on the host; one counted call, then ten pairs against msm() in turns
-    # (host speed moves both by tens of percent between calls) ------------
-    clear_counts()
-    wout, _ = wall(run_wsums)
-    counts_by_phase["msm_wsums_2^20"] = by_op = read_counts()
-    require_launched("msm_wsums_2^20", ["K4 fold level 0",
-                                        "K6 wreduce 2^20/c=15"])
-    if ec.decode_points(g1, tuple(x[None] for x in wout))[0] != expect:
-        raise AssertionError("2^20 wsums + host Horner differs from the host")
-    wtimes, mtimes = [], []
-    for i in range(10):
-        for fn in ((run_wsums, run_msm) if i % 2 else (run_msm, run_wsums)):
-            (wtimes if fn is run_wsums else mtimes).append(wall(fn)[1])
-    emit({"phase": "msm_wsums_2^20", "c": 15, "wsums_horner_s": wtimes,
-          "msm_s": mtimes,
-          "pairs_won_by_wsums": sum(w < m for w, m in zip(wtimes, mtimes)),
-          "points_per_s": nm / min(wtimes), "matches_host": True,
-          "launches_by_mode": by_op})
+    emit({"phase": "msm_wsums_2^20", **wsums_pairs(
+        g1, pts, st, 15, expect, "msm_wsums_2^20",
+        ["K4 fold level 0", "K6 wreduce 2^20/c=15"], 10)})
+    del pts, st, out
+    torch.cuda.empty_cache()
 
-    del pts, kt, st, G, out, wout
+    # ---- phase 4c: both splits on 2^20 BLS12-381 G1 points at c = 16 (K4
+    # and K6 at 12 words): msm() checked, then the wsums split counted,
+    # checked and in three pairs taking turns. c = 15 is refused for a
+    # 255-bit scalar field (msm.signed_digits: the top signed digit could
+    # overflow), in the JAX package as here ----------------------------
+    bls = W12.g1
+    pts, st, expect, t_points = msm_inputs(bls, 0xB1512, 1 << 14)  # < r
+    run_msm, _ = splits(bls, pts, st, 16)
+    out, t_msm = wall(run_msm)
+    if ec.decode_points(bls, tuple(x[None] for x in out))[0] != expect:
+        raise AssertionError("2^20 BLS12-381 MSM differs from the host")
+    emit({"phase": "msm_wsums_2^20 w12", "curve": "bls12_381",
+          "points_setup_s": t_points, "first_msm_s": t_msm,
+          "msm_matches_host": True, **wsums_pairs(
+              bls, pts, st, 16, expect, "msm_wsums_2^20 w12",
+              ["K4 fold level 0 w12", "K6 wreduce 2^20/c=16 w12"], 3)})
+    del pts, st, out
     torch.cuda.empty_cache()
 
     # ---- phase 5: the proofs' loss, launch size by launch size -----------

@@ -3,8 +3,8 @@
 Each kernel source `csrc/<name>.cu` is compiled by nvcc, at first use, into
 its own shared library with a plain C interface (loaded with ctypes), for
 `sm_90a`: `lib<name>.so` for fields of eight 32-bit words (BN254,
-BLS12-381 Fr), and for K1-K4 also `lib<name>_w12.so`, built with
--DCOSNARKS_NW=12 for twelve (BLS12-381 Fq), with the same C entry points.
+BLS12-381 Fr), and `lib<name>_w12.so`, built with -DCOSNARKS_NW=12 for
+twelve (BLS12-381 Fq), with the same C entry points.
 All builds run together, one nvcc process each, into
 `build/kernels/<hash>/` beside the package, where <hash> covers every file
 in csrc/ and both flag sets, so an edited source rebuilds and an unchanged
@@ -31,8 +31,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build"
 KERNELS = ("mont_mul", "jacobian", "proj_op", "msm_fold", "jacobian_madd",
            "wreduce")
-# the kernels built at twelve words too (K5 and K6 take eight only)
-WIDE_KERNELS = ("mont_mul", "jacobian", "proj_op", "msm_fold")
 WIDTHS = (8, 12)  # 32-bit words per field element
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--resource-usage"]
@@ -56,7 +54,7 @@ SIGNATURES = {
     "jacobian_madd": ("cosnarks_jacobian_madd",
                       [_INT] + [_P] * 9 + [_I64, _PARAMS, _P]),
     "wreduce": ("cosnarks_wreduce",
-                [_P] * 7 + [_I64, _I64, _INT, _PARAMS, _P]),
+                [_P] * 7 + [_I64] * 3 + [_INT] * 3 + [_PARAMS, _P]),
 }
 
 _lock = threading.Lock()
@@ -89,16 +87,15 @@ def build_dir() -> Path:
 
 def _stem(name: str, words: int) -> str:
     """File stem of kernel `name`'s build at `words` words."""
-    if words not in WIDTHS or (words != 8 and name not in WIDE_KERNELS):
+    if words not in WIDTHS or name not in KERNELS:
         raise ValueError(f"kernel {name} is not built for {words}-word "
                          "fields")
     return name if words == 8 else f"{name}_w{words}"
 
 
 def builds():
-    """Every (kernel, words) build, K1-K4 at both widths."""
-    return [(name, words) for name in KERNELS for words in WIDTHS
-            if words == 8 or name in WIDE_KERNELS]
+    """Every (kernel, words) build: each kernel at both widths."""
+    return [(name, words) for name in KERNELS for words in WIDTHS]
 
 
 def _build_all(out: Path) -> None:

@@ -1,179 +1,246 @@
-// K6: weighted bucket reduction, sum_j (j+1) * S_j per window over W
-// projective buckets (W a power of two >= 64), one thread block per window.
+// K6: weighted bucket reduction, out_w = sum_j (j+1) S_j per window over W
+// projective buckets (buckets[:, j] holds bucket j+1), as segmented running
+// sums across the card.
 //
-// Replaces _wreduce_call of cosnarks_tpu/ec/pallas_ec.py and keeps its
-// decomposition, so the output limbs equal ec_kernels.wreduce_plain's: with
-// L = 8 rows, H = W/8 lanes and j = H*l + h,
-//   sum_j (j+1) S_j = H * sum_l l*R_l + sum_h (h+1)*C_h,
-// C_h = sum_l S[l, h] by three row-halving RCB adds, R_l = lane 0 of a
-// suffix ladder along each row, and both weighted sums read off double
-// suffix ladders (U = suffix(suffix(.)); sum_h (h+1) C_h = U[0],
-// sum_l l R_l = U[1]). Ladder level s adds to each point the one s further
-// along its row, or the identity (0 : 1 : 0) past the row's end.
+// Replaces _wreduce_call of cosnarks_tpu/ec/pallas_ec.py (reached through
+// weighted_bucket_sum): the same function in another order of additions.
+// The TPU kernel held a window's W points in VMEM and read both weighted
+// sums off double suffix ladders, rolls of a VMEM tile; here a window is
+// split into P segments of m = W / P consecutive buckets
+// (ec_kernels.wreduce_geometry), and ec_kernels.wreduce_plain runs the same
+// additions in the same order, so the output limbs are equal:
+//   segments  a group of G threads owns segment p (buckets p m .. p m + m-1)
+//             and walks it from the top bucket down with two running sums
+//             in its slots, run += S_j, then acc += run, both starting at
+//             the top bucket: T_p = run = sum S_j and A_p = acc =
+//             sum (j - p m + 1) S_j, 2 (m - 1) adds in series;
+//   scale     D_p = (p m) T_p + A_p, by double-and-add over the bits of p
+//             below its top bit (public), then log2 m doublings, then + A_p;
+//             D_0 = A_0;
+//   tree      out_w = sum_p D_p pairwise in a fixed order (level 1 adds
+//             D_2i + D_2i+1, ...), a second kernel with one block a window.
+// Every add and double is RCB's complete formula in rcb_group.cuh's layers
+// (the code K3 and K4 run), so the identity, P = Q and P = -Q take the same
+// path.
 //
-// On the TPU one grid cell held the window's W points in VMEM. One window at
-// c = 15 is 16384 points x 96 bytes = 1.5 MB, far beyond the 227 KB of
-// shared memory, so here each ladder level is a pass of the block over
-// double-buffered scratch in device memory (2W points per window, laid out
-// as 24 word planes so neighbouring threads touch neighbouring words), with
-// __syncthreads() between levels. Operations-bound by the roofline: the sum
-// needs about 2W RCB adds per window (running sums), while the ladders do
-// about 1.25 W log2(W/8) + 7 W/8, 6.1x and 7.3x that at c = 13 and 15, the
-// identity adds past each row's end included. With one block per window
-// (17-20 blocks on 132 SMs) it runs 167x and 228x above its bound. Filling
-// the card (several blocks per window, or the ladders split across
-// launches) is left to a later change.
-#include "point.cuh"
+// What bounds it on the card: operations. The sum needs 2 (W - 1) adds a
+// window by running sums (what chip_smoke.py's bound counts); this design
+// does 2 (W - P) + P (log2 W + popcount) + P (segments, scale, tree), 1.2-
+// 1.27x that at the table's splits (ec_kernels.wreduce_work). The grid
+// covers nwin x P groups (8704 at 17 x 16384 with P = 512), a segment's
+// step is 2 RCB adds deep, and each lane copies the next bucket's
+// coordinate into its stage with 16-byte cp.async while the current step
+// computes. The scratch is the nwin x P sums D_p. What is left (PERF.md):
+// 12-19x the multiply bound, with 4-8 warps an SM (segments of 32
+// buckets) and every lane of a group repeating the additions between
+// layers.
+#include "rcb_group.cuh"
 
 using namespace cosnarks;
 
-constexpr int kWThreads = 256;
-constexpr int kWords = 3 * NW;  // 32-bit words per projective point
+namespace {
 
-// Word k of scratch point j sits at base[k * cap + j].
-__device__ __forceinline__ Pt sp_load(const uint32_t* base, int64_t cap,
-                                      int64_t j) {
-  Pt P;
+constexpr int kMaxThreads = 256;
+constexpr int kMaxSegments = 1024;
+// Slots of one segment's group: the running sum, the weighted sum, the
+// step's bucket, the scaled sum, the products.
+enum : int {
+  RUN = 0, ACC = 3, OPQ = 6, SC = 9, PROD = 12,
+  kSlots = PROD + kRcbProducts
+};
+constexpr int kGroupWords = kSlots * NW + 4;  // padded: 656, 976 bytes
+constexpr int kStageBytes = 3 * NL * 8;       // one bucket's int64 limbs
+
+constexpr int segment_smem_bytes(int groups) {
+  return groups * (kGroupWords * 4 + kStageBytes);
+}
+
+// The tree: one block a window, groups of kTreeGroup threads a pair.
+constexpr int kTreeThreads = 256;
+constexpr int kTreeGroup = 4;
+
+constexpr int tree_smem_bytes(int P) {
+  return (3 * P + kTreeThreads / kTreeGroup * kRcbProducts) * NW * 4;
+}
+
+// P + Q into P's slots, then the group meets.
+template <int G>
+__device__ __forceinline__ void add_into(uint32_t* S, int l, int p, int q,
+                                         int pr, int b3, unsigned mask,
+                                         const FieldParams& F) {
+  rcb_add<G>(S, l, p, q, pr, b3, mask, F,
+             [&](int c, const Fe& v) { put(S, p + c, v); });
+  __syncwarp(mask);
+}
+
+template <int G>
+__device__ __forceinline__ void double_into(uint32_t* S, int l, int p,
+                                            int pr, int b3, unsigned mask,
+                                            const FieldParams& F) {
+  rcb_double<G>(S, l, p, pr, b3, mask, F,
+                [&](int c, const Fe& v) { put(S, p + c, v); });
+  __syncwarp(mask);
+}
+
+}  // namespace
+
+// Segment s = blockIdx.x * groups + (group in the block) of nwin x P:
+// window s / P, segment p = s % P; writes D_p's words to
+// dsum[(s * 3 + c) * NW].
+template <int G>
+__global__ void __launch_bounds__(kMaxThreads)
+    wreduce_segments(const int64_t* __restrict__ bx,
+                     const int64_t* __restrict__ by,
+                     const int64_t* __restrict__ bz,
+                     uint32_t* __restrict__ dsum, int64_t segs, int64_t W,
+                     int P, int log_m, int b3, FieldParams F) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int groups = blockDim.x / G;
+  const int j = threadIdx.x / G, l = threadIdx.x % G;
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * groups + j;
+  if (s >= segs) return;  // whole groups; no block-wide barrier follows
+  const unsigned mask = group_mask<G>(threadIdx.x);
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem) + j * kGroupWords;
+  unsigned char* st = smem + groups * kGroupWords * 4 + j * kStageBytes;
+  const int p = static_cast<int>(s % P);
+  const int64_t lo = (s / P) * W + (static_cast<int64_t>(p) << log_m);
+  const int64_t top = lo + (int64_t(1) << log_m) - 1;
+  const int64_t* src[3] = {bx, by, bz};
+
+  // Lane c mod G copies coordinate c of bucket b into its stage, and later
+  // converts it into slot `to` + c: the lane reads only what it copied.
+  auto stage = [&](int64_t b) {
+    for (int c = l; c < 3; c += G) {
+      const char* g = reinterpret_cast<const char*>(src[c] + b * NL);
 #pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    P.x.w[k] = base[k * cap + j];
-    P.y.w[k] = base[(NW + k) * cap + j];
-    P.z.w[k] = base[(2 * NW + k) * cap + j];
-  }
-  return P;
-}
-
-__device__ __forceinline__ void sp_store(uint32_t* base, int64_t cap,
-                                         int64_t j, const Pt& P) {
-#pragma unroll
-  for (int k = 0; k < NW; ++k) {
-    base[k * cap + j] = P.x.w[k];
-    base[(NW + k) * cap + j] = P.y.w[k];
-    base[(2 * NW + k) * cap + j] = P.z.w[k];
-  }
-}
-
-__device__ __forceinline__ Pt proj_identity(const FieldParams& F) {
-  Pt I;
-  I.x = fe_zero();
-  I.y = fe_one(F);
-  I.z = fe_zero();
-  return I;
-}
-
-// Suffix ladder over `rows` rows of `width` points at scratch [src, src +
-// rows * width), ping-ponging with [other, ...): max(1, ceil(log2 width))
-// levels. Returns the offset that holds the result. All threads call it.
-__device__ int64_t ladder(uint32_t* base, int64_t cap, int64_t src,
-                          int64_t other, int64_t rows, int64_t width, int b3,
-                          const FieldParams& F) {
-  int nlev = 0;
-  while ((int64_t(1) << nlev) < width) ++nlev;
-  if (nlev == 0) nlev = 1;
-  const int64_t n = rows * width;
-  for (int t = 0; t < nlev; ++t) {
-    const int64_t s = int64_t(1) << t;
-    for (int64_t idx = threadIdx.x; idx < n; idx += blockDim.x) {
-      const int64_t i = idx % width;
-      Pt a = sp_load(base, cap, src + idx);
-      Pt b = i < width - s ? sp_load(base, cap, src + idx + s)
-                           : proj_identity(F);
-      sp_store(base, cap, other + idx, proj_add(a, b, b3, F));
+      for (int i = 0; i < NW; ++i)
+        cp_async16(st + c * NL * 8 + i * 16, g + i * 16);
     }
-    __syncthreads();
-    const int64_t tmp = src;
-    src = other;
-    other = tmp;
+    cp_async_commit();
+  };
+  auto take = [&](int to) {
+    cp_async_wait<0>();
+    for (int c = l; c < 3; c += G)
+      put(S, to + c, fe_from_row(st + c * NL * 8));
+    __syncwarp(mask);
+  };
+
+  stage(top);
+  take(RUN);
+  for (int c = l; c < 3; c += G) put(S, ACC + c, get(S, RUN + c));
+  __syncwarp(mask);
+  if (top > lo) stage(top - 1);
+  for (int64_t b = top - 1; b >= lo; --b) {
+    take(OPQ);
+    if (b > lo) stage(b - 1);  // in flight while the two adds compute
+    add_into<G>(S, l, RUN, OPQ, PROD, b3, mask, F);
+    add_into<G>(S, l, ACC, RUN, PROD, b3, mask, F);
   }
-  return src;
+
+  int d = ACC;
+  if (p > 0) {  // D_p = (p m) T_p + A_p
+    for (int c = l; c < 3; c += G) put(S, SC + c, get(S, RUN + c));
+    __syncwarp(mask);
+    for (int bit = 30 - __clz(p); bit >= 0; --bit) {
+      double_into<G>(S, l, SC, PROD, b3, mask, F);
+      if ((p >> bit) & 1) add_into<G>(S, l, SC, RUN, PROD, b3, mask, F);
+    }
+    for (int i = 0; i < log_m; ++i)
+      double_into<G>(S, l, SC, PROD, b3, mask, F);
+    add_into<G>(S, l, SC, ACC, PROD, b3, mask, F);
+    d = SC;
+  }
+  for (int c = l; c < 3; c += G)
+    put(dsum + (s * 3 + c) * NW, 0, get(S, d + c));
 }
 
-__global__ void __launch_bounds__(kWThreads)
-    wreduce_kernel(const int64_t* __restrict__ bx,
-                   const int64_t* __restrict__ by,
-                   const int64_t* __restrict__ bz, int64_t* __restrict__ ox,
-                   int64_t* __restrict__ oy, int64_t* __restrict__ oz,
-                   uint32_t* __restrict__ scratch, int64_t W, int b3,
-                   FieldParams F) {
-  __shared__ uint32_t w2s[kWords];
+// One block a window: its P sums D_p into slots 3p..3p+2, then log2 P
+// levels of pairwise adds in place (level t adds D at 2^t apart), each
+// pair on a group of kTreeGroup threads; slot 0 is out_w.
+template <int G>
+__global__ void __launch_bounds__(kTreeThreads)
+    wreduce_tree(const uint32_t* __restrict__ dsum, int64_t* __restrict__ ox,
+                 int64_t* __restrict__ oy, int64_t* __restrict__ oz, int P,
+                 int b3, FieldParams F) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* S = reinterpret_cast<uint32_t*>(smem);
   const int64_t win = blockIdx.x;
-  const int64_t H = W / 8;
-  const int64_t cap = 2 * W;
-  uint32_t* base = scratch + win * kWords * cap;
-
-  // the window's buckets S[l, h] = S_{H*l + h} into [0, W)
-  for (int64_t j = threadIdx.x; j < W; j += blockDim.x) {
-    sp_store(base, cap, j, pt_load(bx, by, bz, (win * W + j) * NL, 1));
-  }
+  const uint4* src = reinterpret_cast<const uint4*>(dsum + win * P * 3 * NW);
+  for (int i = threadIdx.x; i < P * 3 * NW / 4; i += blockDim.x)
+    reinterpret_cast<uint4*>(S)[i] = src[i];
   __syncthreads();
-
-  // C_h: rows l and l+4, then l and l+2, then 0 and 1; into [W, W + H)
-  for (int64_t h = threadIdx.x; h < H; h += blockDim.x) {
-    Pt b0 = proj_add(
-        proj_add(sp_load(base, cap, h), sp_load(base, cap, 4 * H + h), b3, F),
-        proj_add(sp_load(base, cap, 2 * H + h), sp_load(base, cap, 6 * H + h),
-                 b3, F),
-        b3, F);
-    Pt b1 = proj_add(
-        proj_add(sp_load(base, cap, H + h), sp_load(base, cap, 5 * H + h), b3,
-                 F),
-        proj_add(sp_load(base, cap, 3 * H + h), sp_load(base, cap, 7 * H + h),
-                 b3, F),
-        b3, F);
-    sp_store(base, cap, W + h, proj_add(b0, b1, b3, F));
+  const int groups = blockDim.x / G;
+  const int g = threadIdx.x / G, l = threadIdx.x % G;
+  const unsigned mask = group_mask<G>(threadIdx.x);
+  const int pr = 3 * P + g * kRcbProducts;
+  for (int half = 1; half < P; half *= 2) {
+    for (int i = g; i < P / (2 * half); i += groups)
+      add_into<G>(S, l, 3 * (2 * half * i), 3 * (2 * half * i + half), pr,
+                  b3, mask, F);
+    __syncthreads();
   }
-  __syncthreads();
-
-  // w2 = sum_h (h+1) C_h = U[0] of suffix(suffix(C))
-  int64_t u = ladder(base, cap, W, W + H, 1, H, b3, F);
-  u = ladder(base, cap, u, u == W ? W + H : W, 1, H, b3, F);
-  if (threadIdx.x == 0) {
-    Pt w2 = sp_load(base, cap, u);
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      w2s[k] = w2.x.w[k];
-      w2s[NW + k] = w2.y.w[k];
-      w2s[2 * NW + k] = w2.z.w[k];
-    }
-  }
-  __syncthreads();
-
-  // R_l: lane 0 of a suffix ladder along each row, copied to the other half
-  const int64_t rows = ladder(base, cap, 0, W, 8, H, b3, F);
-  const int64_t r0 = rows == 0 ? W : 0;
-  if (threadIdx.x < 8) {
-    sp_store(base, cap, r0 + threadIdx.x,
-             sp_load(base, cap, rows + threadIdx.x * H));
-  }
-  __syncthreads();
-
-  // w1 = sum_l l R_l = U[1] of suffix(suffix(R)), times H; out = w1 + w2
-  u = ladder(base, cap, r0, r0 + 8, 1, 8, b3, F);
-  u = ladder(base, cap, u, u == r0 ? r0 + 8 : r0, 1, 8, b3, F);
-  if (threadIdx.x == 0) {
-    Pt w1 = sp_load(base, cap, u + 1);
-    for (int64_t m = H; m > 1; m >>= 1) w1 = proj_double(w1, b3, F);
-    Pt w2;
-#pragma unroll
-    for (int k = 0; k < NW; ++k) {
-      w2.x.w[k] = w2s[k];
-      w2.y.w[k] = w2s[NW + k];
-      w2.z.w[k] = w2s[2 * NW + k];
-    }
-    pt_store(ox, oy, oz, win * NL, 1, proj_add(w1, w2, b3, F));
+  if (g == 0) {
+    int64_t* out[3] = {ox, oy, oz};
+    for (int c = l; c < 3; c += G) fe_store(out[c] + win * NL, 1, get(S, c));
   }
 }
 
+template <int G>
+static cudaError_t launch_segments(int threads, cudaStream_t stream,
+                                   const int64_t* bx, const int64_t* by,
+                                   const int64_t* bz, uint32_t* dsum,
+                                   int64_t segs, int64_t W, int P, int log_m,
+                                   int b3, const FieldParams& F) {
+  const cudaError_t err = allow_dynamic_smem<wreduce_segments<G>>(
+      segment_smem_bytes(kMaxThreads / G));
+  if (err != cudaSuccess) return err;
+  const int groups = threads / G;
+  const auto blocks = static_cast<unsigned int>((segs + groups - 1) / groups);
+  wreduce_segments<G><<<blocks, threads, segment_smem_bytes(groups),
+                        stream>>>(bx, by, bz, dsum, segs, W, P, log_m, b3, F);
+  return cudaGetLastError();
+}
+
+// P: segments a window (a power of two, at most W and kMaxSegments);
+// group: threads a segment (2, 4 or 8); threads a block for the segments
+// (a multiple of 32, at most 256); scratch: nwin x P x 3 NW words
+// (ec_kernels.wreduce_geometry, wreduce_launch).
 extern "C" int cosnarks_wreduce(const int64_t* bx, const int64_t* by,
                                 const int64_t* bz, int64_t* ox, int64_t* oy,
                                 int64_t* oz, uint32_t* scratch, int64_t nwin,
-                                int64_t W, int b3, const uint32_t* params,
+                                int64_t W, int64_t P, int b3, int group,
+                                int threads, const uint32_t* params,
                                 void* stream) {
-  if (b3 <= 0 || nwin <= 0 || W < 64 || (W & (W - 1)) != 0) {
+  if (b3 <= 0 || nwin <= 0 || W < 64 || (W & (W - 1)) != 0 || P < 1 ||
+      P > W || P > kMaxSegments || (P & (P - 1)) != 0 ||
+      (group != 2 && group != 4 && group != 8) || threads <= 0 ||
+      threads > kMaxThreads || threads % 32 != 0 ||
+      segment_smem_bytes(threads / group) > kMaxDynamicSmem ||
+      tree_smem_bytes(static_cast<int>(P)) > kMaxDynamicSmem) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  wreduce_kernel<<<static_cast<unsigned int>(nwin), kWThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      bx, by, bz, ox, oy, oz, scratch, W, b3, params_from(params));
+  int log_m = 0;
+  while ((P << log_m) < W) ++log_m;
+  const auto s = static_cast<cudaStream_t>(stream);
+  const FieldParams F = params_from(params);
+  const int p = static_cast<int>(P);
+  cudaError_t err;
+  if (group == 2) {
+    err = launch_segments<2>(threads, s, bx, by, bz, scratch, nwin * P, W, p,
+                             log_m, b3, F);
+  } else if (group == 4) {
+    err = launch_segments<4>(threads, s, bx, by, bz, scratch, nwin * P, W, p,
+                             log_m, b3, F);
+  } else {
+    err = launch_segments<8>(threads, s, bx, by, bz, scratch, nwin * P, W, p,
+                             log_m, b3, F);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = allow_dynamic_smem<wreduce_tree<kTreeGroup>>(
+      tree_smem_bytes(kMaxSegments));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  wreduce_tree<kTreeGroup>
+      <<<static_cast<unsigned int>(nwin), kTreeThreads, tree_smem_bytes(p),
+         s>>>(scratch, ox, oy, oz, p, b3, F);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,18 +1,16 @@
 """K2–K6: the G1 point kernels on Hopper, and their plain versions.
 
-K2-K4 are built for two field widths (`_build.WIDE_KERNELS`): sixteen
-16-bit limbs per coordinate, eight 32-bit words inside the kernel (BN254
-G1), and twenty-four limbs, twelve words (BLS12-381 G1); each wrapper
-launches the build of its curve's width and counts its launches under
-(words, op). K5 and K6 are built at eight words only and raise on a
-24-limb field. All compute with canonical values at every step, so their
-output limbs equal the plain versions' exactly. The
-field arithmetic they share is csrc/field.cuh, the curve formulas
-csrc/point.cuh. K2, K3 and K4 give each point (or fold lane) a group of
-threads that runs the formula's field products in layers, one product per
-lane, with operands passed through shared-memory slots (csrc/group.cuh);
-K5 gives each point one thread, with intermediates in registers; K6 runs
-one thread block per window.
+Each is built for two field widths (`_build.WIDTHS`): sixteen 16-bit
+limbs per coordinate, eight 32-bit words inside the kernel (BN254 G1), and
+twenty-four limbs, twelve words (BLS12-381 G1); each wrapper launches the
+build of its curve's width and counts its launches under (words, op). All
+compute with canonical values at every step, so their output limbs equal
+the plain versions' exactly. The field arithmetic they share is
+csrc/field.cuh, the curve formulas csrc/point.cuh. K2, K3, K4 and K6 give
+each point (fold lane, segment) a group of threads that runs the formula's
+field products in layers, one product per lane, with operands passed
+through shared-memory slots (csrc/group.cuh); K5 gives each point one
+thread, with intermediates in registers.
 
 K2 — complete Jacobian add and double (csrc/jacobian.cu). Replaces
   `_add_call` and `_double_call` of cosnarks_tpu/ec/pallas_ec.py: add-2007-bl
@@ -54,13 +52,18 @@ K5 — complete Jacobian + affine mixed add, optional validity mask
   selects of `curve.madd` (P=-Q -> inf, P=Q -> double, P=inf -> (x2, y2, 1),
   then the mask).
 K6 — the weighted bucket reduction sum_j (j+1) S_j per window
-  (csrc/wreduce.cu). Replaces `_wreduce_call` with its decomposition (8 rows
-  of W/8 lanes, column sums, double suffix ladders); one block per window
-  runs the ladder levels as passes over scratch in device memory.
+  (csrc/wreduce.cu). Replaces `_wreduce_call` with segmented running sums
+  across the card: each window splits into P segments of W / P buckets
+  (`wreduce_geometry`), a group of threads per segment walks it with two
+  running sums in the layers of `RCB_SCHEDULE`, scales its sums by its
+  offset with a double-and-add over the segment index, and a second kernel
+  adds a window's P results in a pairwise tree. `wreduce_plain` runs the
+  same additions in the same order.
 
 What bounds them on the card: by the roofline, bytes for K2-K5, operations
-for K6 (the sum needs ~2W adds per window over W points read; its ladders do
-~1.25 W log2(W/8), 6.1-7.3x that). At the int64 limb boundary a coordinate
+for K6 (the sum needs 2 (W - 1) adds per window over W points read; the
+segments, scale and tree do 1.2-1.27x that at the table's splits,
+`wreduce_work`). At the int64 limb boundary a coordinate
 is 128 bytes (192 at twelve words), and moving a point op's 5-9
 coordinates (K2, K3, K5) or a fold step's operands and dumped sum (K4)
 takes the card longer than their 8-16 field products of 264 32-bit
@@ -69,9 +72,8 @@ above their bounds (PERF.md's kernel table): they are latency- and
 occupancy-bound. One thread per point or lane runs the formula's products
 as one serial chain and keeps ~30 field elements live (130-184 registers,
 nvcc --resource-usage in the smoke output), so few warps per SM hide the
-chains; K2-K4's groups of threads cut the chain to the formula's depth in
-layers, while K5 keeps one thread per point and K6 one 256-thread block per
-window on 132 SMs.
+chains; K2-K4's and K6's groups of threads cut the chain to the formula's
+depth in layers, while K5 keeps one thread per point.
 
 Dispatch: CPU tensors take the plain versions (the formulas of
 :mod:`.curve` over :class:`PlainFqOps`); CUDA tensors launch or raise.
@@ -106,16 +108,6 @@ def _b3(spec) -> int:
     if not isinstance(spec.b, int) or not 0 < b3 <= 64:
         raise ValueError(f"the point kernels take small-b curves, not {spec}")
     return b3
-
-
-def _eight_words_only(spec, kernel: str) -> None:
-    """Raise unless `spec`'s field is one of eight 32-bit words: `kernel`
-    (K5 or K6) has no twelve-word build. Its wrappers call this before
-    anything else."""
-    if field_words(spec.ops.field) != 8:
-        raise ValueError(f"{kernel} is built for 8-word (16-limb) fields "
-                         f"only; {spec.name} needs the missing 12-word "
-                         f"(24-limb) build")
 
 
 def _flatten(coords, n):
@@ -503,7 +495,6 @@ def madd_launch(spec, coords, valid=None):
     """Launch K5 on 5 flat contiguous (total, n) coordinates (x1, y1, z1,
     x2, y2), masked when a (total,) int64 validity mask is given; returns
     the 3 output coordinates."""
-    _eight_words_only(spec, "K5")
     n = spec.ops.field.nlimbs
     device = coords[0].device
     if len(coords) != 5:
@@ -517,14 +508,15 @@ def madd_launch(spec, coords, valid=None):
     if total == 0:
         return out
     mode = MADD if valid is None else MADD_MASKED
-    lib = _build.load("jacobian_madd")
+    words = field_words(spec.ops.field)
+    lib = _build.load("jacobian_madd", words)
     with torch.cuda.device(device):
         launch(lib.cosnarks_jacobian_madd, ctypes.c_int(mode),
                *[ptr(a) for a in coords],
                ptr(valid) if valid is not None else None,
                *[ptr(o) for o in out], ctypes.c_int64(total),
                field_params(spec.ops.field))
-    count(madd_launch, (8, mode), total)
+    count(madd_launch, (words, mode), total)
     return out
 
 
@@ -551,81 +543,112 @@ def madd(spec, P, Q_affine, valid=None):
 # K6: weighted bucket reduction
 # --------------------------------------------------------------------------
 
-WREDUCE_ROWS = 8  # L: rows of the (L, W/L) bucket block
-
-
 def _check_width(W: int):
     if W < 64 or W & (W - 1):
         raise ValueError(f"bucket width must be a power of two >= 64, "
                          f"not {W}")
 
 
-def _suffix_ladder(spec, o, pts):
-    """suffix[j] = sum_{j' >= j} pts[j'] along the lane axis (dim -2):
-    max(1, ceil(log2 width)) levels, each adding pts[j + s] (the identity
-    (0 : 1 : 0) past the end) to pts[j] — `_wreduce_call`'s ladder."""
-    width = pts[0].shape[-2]
-    ident = (torch.zeros_like(pts[0]), o.one_like(pts[0]),
-             torch.zeros_like(pts[0]))
-    for t in range(max(1, (width - 1).bit_length())):
-        s = 1 << t
-        shifted = tuple(torch.cat([x[..., s:, :], i[..., :s, :]], dim=-2)
-                        for x, i in zip(pts, ident))
-        pts = curve._proj_add_formula(spec, o, pts, shifted)
-    return pts
+# Launch geometry of K6 by field width and bucket width W: (P segments a
+# window, threads a segment, threads a block of the segment kernel).
+# scripts/torch_k6_sweep.py timed P = 64-1024 with groups of 2, 4 and 8 in
+# blocks of 64-256 threads at both widths on 20 x 4096, 17 x 16384 and
+# 16 x 32768 buckets on an H100 (PERF.md); each entry is the fastest there,
+# at 17 x 16384 among the splits that do at most 1.3x the 2 (W - 1) adds
+# the sum needs (P <= 512; P = 1024 was 7 % faster at 8 words, with 1.5x
+# the adds). Segments of 32 buckets (64 at 16 x 32768, 8 words) won; a
+# width missing here takes P = min(W / 32, 512).
+WREDUCE_GEOMETRY = {
+    8: {4096: (128, 8, 256), 16384: (512, 4, 128), 32768: (512, 4, 256)},
+    12: {4096: (128, 8, 128), 16384: (512, 2, 128), 32768: (1024, 2, 256)},
+}
 
 
-def wreduce_plain(spec, buckets):
+def wreduce_geometry(W: int, words: int):
+    """(P, group, threads) of K6 over windows of W buckets at `words`
+    32-bit words: P segments of W / P buckets, a group of `group` threads
+    a segment, threads // group segments a block."""
+    _check_width(W)
+    return WREDUCE_GEOMETRY[words].get(W, (min(W // 32, 512), 4, 128))
+
+
+def wreduce_work(W: int, P: int):
+    """RCB ops a window of the segmented sum at P segments: {"segment_adds":
+    2 (W - P), "scale_doublings", "scale_adds", "tree_adds": P - 1}."""
+    log_m = (W // P).bit_length() - 1
+    return {"segment_adds": 2 * (W - P),
+            "scale_doublings": sum(p.bit_length() - 1 + log_m
+                                   for p in range(1, P)),
+            "scale_adds": sum(bin(p).count("1") for p in range(1, P)),
+            "tree_adds": P - 1}
+
+
+def wreduce_plain(spec, buckets, segments: int | None = None):
     """Plain version of K6, in the kernel's order of additions (so limb for
-    limb equal): buckets 3 x (nwin, W, n) -> 3 x (nwin, n)."""
+    limb equal): buckets 3 x (nwin, W, n) -> 3 x (nwin, n). Split into
+    `segments` (P, default the geometry's) of m = W / P buckets: per
+    segment the running sums run += S_j, acc += run from the top bucket
+    down (T_p, A_p), then D_p = (p m) T_p + A_p by double-and-add over p's
+    bits (a mask keeps a segment's value where its bits have run out),
+    then sum_p D_p pairwise."""
     o = _plain_ops(spec)
     n = spec.ops.field.nlimbs
     nwin, W = buckets[0].shape[:2]
-    L = WREDUCE_ROWS
-    H = W // L
-    s = tuple(x.reshape(nwin, L, H, n) for x in buckets)  # j = H*l + h
-    cols, m = s, L
-    while m > 1:  # C_h: three row-halving adds
-        half = m // 2
-        cols = curve._proj_add_formula(spec, o,
-                                       tuple(x[:, :half] for x in cols),
-                                       tuple(x[:, half:m] for x in cols))
-        m = half
-    u = _suffix_ladder(spec, o, _suffix_ladder(spec, o, cols))
-    w2 = tuple(x[:, 0, 0] for x in u)  # sum_h (h+1) C_h
-    rows = tuple(x[:, :, 0] for x in _suffix_ladder(spec, o, s))  # R_l
-    u = _suffix_ladder(spec, o, _suffix_ladder(spec, o, rows))
-    w1 = tuple(x[:, 1] for x in u)  # sum_l l R_l
-    for _ in range(H.bit_length() - 1):  # * H
-        w1 = curve._proj_double_formula(spec, o, w1)
-    return curve._proj_add_formula(spec, o, w1, w2)
+    P = segments or wreduce_geometry(W, field_words(spec.ops.field))[0]
+    m = W // P
+
+    def add(a, b):
+        return curve._proj_add_formula(spec, o, a, b)
+
+    def dbl(a):
+        return curve._proj_double_formula(spec, o, a)
+
+    s = tuple(x.reshape(nwin, P, m, n) for x in buckets)
+    run = acc = tuple(x[:, :, m - 1] for x in s)
+    for i in range(m - 2, -1, -1):
+        run = add(run, tuple(x[:, :, i] for x in s))
+        acc = add(acc, run)
+    p = torch.arange(P, device=buckets[0].device)
+    r = run
+    for bit in range(P.bit_length() - 3, -1, -1):  # below p's top bit
+        live = (p >> (bit + 1)) != 0
+        r = curve._select(o, live, dbl(r), r)
+        r = curve._select(o, live & (((p >> bit) & 1) != 0), add(r, run), r)
+    for _ in range(m.bit_length() - 1):
+        r = dbl(r)
+    d = curve._select(o, p == 0, acc, add(r, acc))
+    while d[0].shape[1] > 1:
+        d = add(tuple(x[:, 0::2] for x in d), tuple(x[:, 1::2] for x in d))
+    return tuple(x[:, 0] for x in d)
 
 
 def wreduce_launch(spec, buckets):
     """Launch K6 on 3 contiguous (nwin, W, n) bucket coordinates; returns
     3 x (nwin, n)."""
-    _eight_words_only(spec, "K6")
     n = spec.ops.field.nlimbs
     device = buckets[0].device
     check_operands(buckets, n, device)
+    check_aligned(buckets)
     nwin, W = buckets[0].shape[:2]
     if any(tuple(b.shape) != (nwin, W, n) for b in buckets):
         raise ValueError(f"expected buckets of shape {(nwin, W, n)}")
-    _check_width(W)
+    words = field_words(spec.ops.field)
+    P, group, threads = wreduce_geometry(W, words)
     out = [torch.empty((nwin, n), dtype=torch.int64, device=device)
            for _ in range(3)]
     if nwin == 0:
         return tuple(out)
-    # 2W points of 24 32-bit words per window (csrc/wreduce.cu)
-    scratch = torch.empty((nwin, 24, 2 * W), dtype=torch.int32,
+    # the segment sums D_p, 3 coordinates of `words` 32-bit words each
+    scratch = torch.empty((nwin, P, 3 * words), dtype=torch.int32,
                           device=device)
-    lib = _build.load("wreduce")
+    lib = _build.load("wreduce", words)
     with torch.cuda.device(device):
         launch(lib.cosnarks_wreduce, *[ptr(b) for b in buckets],
                *[ptr(x) for x in out], ptr(scratch), ctypes.c_int64(nwin),
-               ctypes.c_int64(W), ctypes.c_int(_b3(spec)),
+               ctypes.c_int64(W), ctypes.c_int64(P), ctypes.c_int(_b3(spec)),
+               ctypes.c_int(group), ctypes.c_int(threads),
                field_params(spec.ops.field))
-    count(wreduce_launch, (8, W), nwin)
+    count(wreduce_launch, (words, W), nwin)
     return tuple(out)
 
 
@@ -637,7 +660,6 @@ def weighted_bucket_sum(spec, buckets):
     """sum_j (j+1) * buckets[:, j] per window in one launch
     (pallas_ec.weighted_bucket_sum's signature): buckets 3 x (nwin, W, n),
     W a power of two >= 64; returns 3 x (nwin, n) projective points."""
-    _check_width(buckets[0].shape[1])
     flat = tuple(b.contiguous() for b in buckets)
     if _on_cpu(flat):
         return wreduce_plain(spec, flat)

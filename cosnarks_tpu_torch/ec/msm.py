@@ -16,7 +16,8 @@ cosnarks_tpu.ec.msm.
  5. window Horner combine, then one projective -> Jacobian conversion
 
 `_pippenger_wsums` + `_host_horner` is the package's other split: steps
-1-3, then step 4 as one K6 launch (`ec_kernels.weighted_bucket_sum`), and
+1-3, then step 4 as one K6 launch (`ec_kernels.weighted_bucket_sum`:
+segmented running sums across the card, at either field width), and
 Horner on the host. msm() does not take it.
 
 Unlike the TPU, where `pallas_ec.lm_geometry` decides whether a level tiles

@@ -5,8 +5,11 @@ its batch, and the wrappers' modes (words, op) keep the 8- and 12-word
 builds apart; a CPU call of any wrapper runs the plain version and counts
 nothing; `mul_geometry` / `mul_tiles` are the persistent grid that
 csrc/mont_mul.cu walks at either width, and must cover every element
-exactly once in 16-byte pieces; K5 and K6, built at eight words only,
-refuse a 24-limb field before anything else."""
+exactly once in 16-byte pieces; every kernel is built at both widths, and
+K5 and K6 launch their field's build and count under (words, op)."""
+
+import contextlib
+import types
 
 import numpy as np
 import pytest
@@ -136,8 +139,7 @@ def test_launch_modes_tell_the_widths_apart(field, words):
     assert mont_kernel.field_words(field) == words
     assert len(mont_kernel.field_params(field)) == 2 * words + 1
     stems = {name for name, w in _build.builds() if w == words}
-    assert stems == (set(_build.KERNELS) if words == 8
-                     else set(_build.WIDE_KERNELS))
+    assert stems == set(_build.KERNELS)
 
     def wrapper():
         pass
@@ -149,18 +151,46 @@ def test_launch_modes_tell_the_widths_apart(field, words):
     assert wrapper.sizes == {((words, 0), 4): 1, ((20 - words, 0), 4): 1}
 
 
-@pytest.mark.parametrize("kernel", ["K5", "K6"])
-def test_k5_k6_refuse_a_24_limb_field(kernel):
-    """K5 and K6 have no 12-word build: their launch wrappers raise on a
-    BLS12-381 G1 field, naming the missing width, before they look at the
-    tensors (these are CPU tensors, which they would refuse later)."""
+@pytest.mark.parametrize("kernel", ["K5", "K5 masked", "K6"])
+def test_k5_k6_launch_their_width_and_count_under_it(kernel, monkeypatch):
+    """K5 and K6 are among the 12-word builds; on a BLS12-381 G1 field their
+    launch wrappers load the 12-word library and count the launch under
+    (12, op) (K6: (12, W)). The card is replaced by a recorder: the
+    wrappers' device checks pass CPU tensors and the launch records its
+    entry point and arguments."""
+    assert {("jacobian_madd", 12), ("wreduce", 12)} <= set(_build.builds())
+    loaded, launched = [], []
+
+    def load(name, words=8):
+        loaded.append((name, words))
+        return types.SimpleNamespace(cosnarks_jacobian_madd="K5",
+                                     cosnarks_wreduce="K6")
+
+    monkeypatch.setattr(ek._build, "load", load)
+    monkeypatch.setattr(ek, "launch", lambda fn, *a: launched.append((fn, a)))
+    monkeypatch.setattr(ek, "check_operands", lambda *a: None)
+    monkeypatch.setattr(ek, "check_aligned", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "device", contextlib.nullcontext)
+    for fn in (ek.madd_launch, ek.wreduce_launch):
+        monkeypatch.setattr(fn, "launches", {})
+        monkeypatch.setattr(fn, "sizes", {})
     x = torch.zeros((4, 24), dtype=torch.int64)
-    with pytest.raises(ValueError, match="12-word"):
-        if kernel == "K5":
-            ek.madd_launch(BLS12_381_G1, [x] * 5)
-        else:
-            ek.wreduce_launch(BLS12_381_G1,
-                              [torch.zeros((1, 64, 24),
-                                           dtype=torch.int64)] * 3)
-    with pytest.raises(ValueError, match="12-word"):
-        _build.load("jacobian_madd" if kernel == "K5" else "wreduce", 12)
+    if kernel == "K6":
+        W = 64
+        P, group, threads = ek.wreduce_geometry(W, 12)
+        ek.wreduce_launch(BLS12_381_G1,
+                          [torch.zeros((2, W, 24), dtype=torch.int64)] * 3)
+        assert loaded == [("wreduce", 12)]
+        assert ek.wreduce_launch.launches == {(12, W): 1}
+        fn, args = launched[0]
+        assert fn == "K6"
+        assert [a.value for a in args[7:13]] == [2, W, P, 3 * 4, group,
+                                                 threads]
+    else:
+        valid = torch.ones(4, dtype=torch.int64) if "masked" in kernel \
+            else None
+        ek.madd_launch(BLS12_381_G1, [x] * 5, valid)
+        mode = ek.MADD_MASKED if valid is not None else ek.MADD
+        assert loaded == [("jacobian_madd", 12)]
+        assert ek.madd_launch.launches == {(12, mode): 1}
+        assert launched[0][0] == "K5" and launched[0][1][0].value == mode
