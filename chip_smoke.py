@@ -12,8 +12,10 @@ Phases, one JSON line each; any failure exits non-zero:
      2^17 and 2^20 products, K2 at 1, 3 and 2^14 points, K3's four modes at
      1, 32 and 2^14 points (edge lanes included), K4's two modes at the
      proofs' L = 40960, 2560 and 160 fold lanes and at L = 160 on edge flag
-     patterns, K5 unmasked and masked at 2^14 points, K6 at the 2^16 / c =
-     13 and 2^20 / c = 15 window shapes and at 2^16 / c = 13 with whole
+     patterns, K5 unmasked and masked at 1, 32, 2^14, 2^17 and 2^20 points
+     (edge lanes included; at 1 point also a P = Q lane, masked an invalid
+     one) with its registers, K6 at the 2^16 / c = 13 and 2^20 / c = 15
+     window shapes and at 2^16 / c = 13 with whole
      identity segments and with every bucket equal, each on BN254 Fq / G1
      (8 words) and on BLS12-381 Fq / G1 (12 words, rows marked "w12"), and
      K6 at 12 words also at the 2^20 / c = 16 shape of phase 4c; call K5
@@ -441,42 +443,62 @@ def main() -> int:
                       "cosnarks_tpu_torch/csrc/msm_fold.cu",
                       shape=[K, L], mode=name + tag, flags=pattern or "smoke")
                 del kernel_fn, plain_fn
-        return P, Q, lane, valid
 
-    def check_k5(w, P, Q, lane, valid):
-        """K5 at width w and 2^14 points: Jacobian P with P = Q (X1 = x2
-        Z1^2, Y1 = y2 Z1^3) on lanes 1 mod 8, P = -Q on lanes 2 mod 8, P =
-        inf on lanes 3 mod 8; the masked mode drops lanes 0 mod 4. Returns
-        the operands (P, affine Q)."""
-        F, g1, n = w.F, w.g1, P[0].shape[0]
+    def check_k5(w):
+        """K5 at width w at 1, 32, 2^14, 2^17 and 2^20 points, unmasked and
+        masked, on a Jacobian P and an affine Q of random canonical limbs:
+        P = Q (X1 = x2 Z1^2, Y1 = y2 Z1^3) on lanes 1 mod 8, P = -Q on
+        lanes 2 mod 8, P = inf on lanes 3 mod 8; the masked mode drops lanes
+        0 mod 4, so its 1-point case is an invalid lane, and both modes also
+        run lane 1 alone (valid, P = Q: the double's layers). Returns the
+        2^14-point operands (P, affine Q, mask)."""
+        F, g1, n5 = w.F, w.g1, 1 << 20
+        P = [w.rand_fe(n5) for _ in range(3)]
+        QA = [w.rand_fe(n5).contiguous() for _ in range(2)]
+        lane = torch.arange(n5, device=dev)
         Zsq = mont.mul(F, P[2], P[2])
-        Zcu = mont.mul(F, Zsq, P[2])
-        Xs, Ys = mont.mul(F, Q[0], Zsq), mont.mul(F, Q[1], Zcu)
-        PJ = [torch.where((lane % 8 == 1)[:, None] | (lane % 8 == 2)[:, None],
-                          Xs, P[0]),
-              torch.where((lane % 8 == 1)[:, None], Ys,
-                          torch.where((lane % 8 == 2)[:, None],
-                                      mont.neg(F, Ys), P[1])),
-              P[2]]
+        Xs = mont.mul(F, QA[0], Zsq)
+        Ys = mont.mul(F, QA[1], mont.mul(F, Zsq, P[2]))
+        same, minus = (lane % 8 == 1)[:, None], (lane % 8 == 2)[:, None]
+        PJ = [torch.where(same | minus, Xs, P[0]),
+              torch.where(same, Ys, torch.where(minus, mont.neg(F, Ys),
+                                                P[1])),
+              torch.where((lane % 8 == 3)[:, None], torch.zeros_like(P[2]),
+                          P[2])]
         PJ = [x.contiguous() for x in PJ]
-        QA = [Q[0].contiguous(), Q[1].contiguous()]
-        p_fin = (PJ[2] != 0).any(-1)
+        del P, Zsq, Xs, Ys
+        valid = (lane % 4 != 0).to(torch.int64).contiguous()
+        finite = (PJ[2] != 0).any(-1)
+        regs = _build.resource_usage("jacobian_madd", w.words)
         for masked in (False, True):
-            vm = valid if masked else None
-            live = p_fin & (valid != 0) if masked else p_fin
             mode = "K5 jacobian madd" + (" (masked)" if masked else "") + w.tag
-            check(mode,
-                  lambda vm=vm: ek.madd_launch(g1, PJ + QA, vm),
-                  lambda vm=vm: ek.madd_plain(
-                      g1, tuple(PJ), tuple(QA),
-                      None if vm is None else vm != 0),
-                  8 * n * w.limb_bytes + (n * 8 if masked else 0),
-                  11 * int(live.sum()) * w.muls, 20,
-                  "cosnarks_tpu/ec/pallas_ec.py:157 (_madd_call"
-                  + (", masked)" if masked else ")"),
-                  "cosnarks_tpu_torch/csrc/jacobian_madd.cu",
-                  shape=[n, w.n])
-        return PJ, QA
+            for label, sl, iters in (
+                    ("1", slice(0, 1), 200), ("1 (P = Q)", slice(1, 2), 200),
+                    ("32", slice(0, 32), 200),
+                    ("2^14", slice(0, 1 << 14), 20),
+                    ("2^17", slice(0, 1 << 17), 20),
+                    ("2^20", slice(0, n5), 20)):
+                ins = [x[sl] for x in PJ + QA]
+                n = ins[0].shape[0]
+                vm = valid[sl] if masked else None
+                live = finite[sl] & (vm != 0) if masked else finite[sl]
+                doubles = int((live & same[sl, 0]).sum())
+                check(f"{mode} {label}",
+                      lambda ins=ins, vm=vm: ek.madd_launch(g1, ins, vm),
+                      lambda ins=ins, vm=vm: ek.madd_plain(
+                          g1, tuple(ins[:3]), tuple(ins[3:]),
+                          None if vm is None else vm != 0),
+                      8 * n * w.limb_bytes + (n * 8 if masked else 0),
+                      (11 * (int(live.sum()) - doubles) + 7 * doubles)
+                      * w.muls, iters,
+                      "cosnarks_tpu/ec/pallas_ec.py:157 (_madd_call"
+                      + (", masked)" if masked else ")"),
+                      "cosnarks_tpu_torch/csrc/jacobian_madd.cu",
+                      shape=[n, w.n], mode=mode, registers=regs,
+                      geometry=ek.madd_geometry(n, w.words))
+        n2 = 1 << 14
+        return ([x[:n2] for x in PJ], [x[:n2] for x in QA],
+                valid[:n2])
 
     def check_k6(w):
         """K6 at width w at its window shapes, on random projective buckets
@@ -538,14 +560,14 @@ def main() -> int:
                                          "differs from the host")
             del bk
 
-    P, Q, lane, valid = check_k1_k4(W8)
-    P12, Q12, lane12, valid12 = check_k1_k4(W12)
+    check_k1_k4(W8)
+    check_k1_k4(W12)
     torch.cuda.empty_cache()
     n2 = 1 << 14
     g1 = BN254_G1
-    PJ, QA = check_k5(W8, P, Q, lane, valid)
-    check_k5(W12, P12, Q12, lane12, valid12)
-    del P12, Q12, lane12, valid12
+    PJ, QA, valid = check_k5(W8)
+    check_k5(W12)
+    torch.cuda.empty_cache()
 
     # K5's entry point, curve.madd: one affine Q broadcast over the batch,
     # unmasked and with a bool mask, launches K5 and equals the plain version
@@ -563,7 +585,7 @@ def main() -> int:
     emit({"phase": "curve_madd", "points": n2, "q": "one, broadcast",
           "masks": [None, "bool"], "k5_launches": launched,
           "max_abs_err": 0})
-    del PJ, QA, q_wide
+    del PJ, QA, valid, q_wide
 
     check_k6(W8)
     check_k6(W12)
@@ -587,7 +609,7 @@ def main() -> int:
     else:
         raise AssertionError("K6 launched on 96 buckets a window")
     emit({"phase": "wrapper_refuses_bad_input", "raised": refused})
-    del a, P, Q
+    del a
     torch.cuda.empty_cache()
     counters = (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
                 ek.fold_launch, ek.madd_launch, ek.wreduce_launch)

@@ -52,7 +52,8 @@ SIGNATURES = {
                  [_INT] + [_P] * 13 + [_I64, _I64] + [_INT] * 4
                  + [_PARAMS, _P]),
     "jacobian_madd": ("cosnarks_jacobian_madd",
-                      [_INT] + [_P] * 9 + [_I64, _PARAMS, _P]),
+                      [_INT] + [_P] * 9 + [_I64] + [_INT] * 3
+                      + [_PARAMS, _P]),
     "wreduce": ("cosnarks_wreduce",
                 [_P] * 7 + [_I64] * 3 + [_INT] * 3 + [_PARAMS, _P]),
 }

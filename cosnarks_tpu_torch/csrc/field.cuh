@@ -8,15 +8,16 @@
 // function returns the canonical representative (< p), so kernel outputs
 // equal the plain PyTorch versions limb for limb.
 //
-// Two ways across the boundary. fe_load / fe_store read and write an
-// element's limbs from the thread that owns it (K5, K6): neighbouring threads
+// Two ways across the boundary. fe_store writes an element's limbs from the
+// thread that owns it (K6's one output point a window): neighbouring threads
 // are 16 NW bytes apart, so a warp's 8-byte access touches 32 lines for 256
-// useful bytes. The tile helpers at the end (K1-K3) move a block's
+// useful bytes. The tile helpers at the end (K1-K5) move a block's
 // consecutive elements through shared memory instead: 16-byte cp.async
 // copies and 16-byte stores with neighbouring threads on neighbouring
 // addresses, each element in a row padded by 16 bytes (144 bytes at eight
 // words, 208 at twelve: NW + 1 pieces of 16 bytes, an odd number) so that
-// eight threads reading 16 bytes of eight rows hit 32 distinct banks.
+// eight threads reading 16 bytes of eight rows hit 32 distinct banks. Rows
+// lie kRowBytes apart, or (K5) a stride of an odd number of pieces.
 #pragma once
 
 #include <cstdint>
@@ -42,19 +43,6 @@ struct FieldParams {
 struct Fe {
   uint32_t w[NW];
 };
-
-// Element whose limb k sits at src[k * stride].
-__device__ __forceinline__ Fe fe_load(const int64_t* __restrict__ src,
-                                      int64_t stride) {
-  Fe r;
-#pragma unroll
-  for (int i = 0; i < NW; ++i) {
-    uint32_t lo = static_cast<uint32_t>(src[(2 * i) * stride]);
-    uint32_t hi = static_cast<uint32_t>(src[(2 * i + 1) * stride]);
-    r.w[i] = lo | (hi << 16);
-  }
-  return r;
-}
 
 __device__ __forceinline__ void fe_store(int64_t* __restrict__ dst,
                                          int64_t stride, const Fe& a) {
@@ -187,14 +175,7 @@ __device__ __forceinline__ Fe fe_mul(const Fe& a, const Fe& b,
   return fe_reduce_once(t, t[NW], F);
 }
 
-// 1-D launch geometry over `total` items.
-constexpr int kThreads = 128;
-
-inline unsigned int blocks_for(int64_t total) {
-  return static_cast<unsigned int>((total + kThreads - 1) / kThreads);
-}
-
-// ---- tiles staged through shared memory (K1-K4) --------------------------
+// ---- tiles staged through shared memory (K1-K5) --------------------------
 
 constexpr int kPieces = NL * 8 / 16;    // 16-byte pieces per element: NW
 constexpr int kRowBytes = NL * 8 + 16;  // padded shared-memory row: 144, 208
@@ -225,24 +206,26 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Start copying n consecutive elements from src (16-byte aligned) into
-// padded rows at dst; every thread of the block takes part. Commit, wait
-// and __syncthreads() before reading the rows.
+// padded rows `stride` bytes apart at dst; every thread of the block takes
+// part. Commit, wait and __syncthreads() before reading the rows.
 __device__ __forceinline__ void tile_stage(unsigned char* dst,
-                                           const int64_t* src, int n) {
+                                           const int64_t* src, int n,
+                                           int stride = kRowBytes) {
   const char* g = reinterpret_cast<const char*>(src);
   for (int c = threadIdx.x; c < n * kPieces; c += blockDim.x)
-    cp_async16(dst + (c / kPieces) * kRowBytes + (c % kPieces) * 16,
+    cp_async16(dst + (c / kPieces) * stride + (c % kPieces) * 16,
                g + c * 16);
 }
 
-// Store n padded rows at src to n consecutive elements at dst (16-byte
-// aligned); every thread of the block takes part.
+// Store n padded rows `stride` bytes apart at src to n consecutive elements
+// at dst (16-byte aligned); every thread of the block takes part.
 __device__ __forceinline__ void tile_store(int64_t* dst,
-                                           const unsigned char* src, int n) {
+                                           const unsigned char* src, int n,
+                                           int stride = kRowBytes) {
   char* g = reinterpret_cast<char*>(dst);
   for (int c = threadIdx.x; c < n * kPieces; c += blockDim.x)
     *reinterpret_cast<uint4*>(g + c * 16) = *reinterpret_cast<const uint4*>(
-        src + (c / kPieces) * kRowBytes + (c % kPieces) * 16);
+        src + (c / kPieces) * stride + (c % kPieces) * 16);
 }
 
 // Element from a padded row: piece i holds limbs 2i and 2i+1 as int64, so

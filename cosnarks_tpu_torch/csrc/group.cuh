@@ -1,4 +1,4 @@
-// Slots of a group of threads that shares one point (K2, K3, K4).
+// Slots of a group of threads that shares one point (K2-K6).
 //
 // A group keeps its point's field elements as NW 32-bit words in shared
 // memory, one slot each. In a layer of independent products every lane
@@ -68,6 +68,25 @@ __device__ __forceinline__ Fe keep_if(bool c, const Fe& a) {
 #pragma unroll
   for (int j = 0; j < NW; ++j) r.w[j] = c ? a.w[j] : 0u;
   return r;
+}
+
+// One layer of N independent products: product k goes to slot out + k and
+// is computed by lane k mod G; operands(k, a, b) sets its two factors.
+template <int G, int N, class Operands>
+__device__ __forceinline__ void group_layer(uint32_t* S, int l, int out,
+                                            unsigned mask,
+                                            const FieldParams& F,
+                                            Operands operands) {
+#pragma unroll
+  for (int r = 0; r < (N + G - 1) / G; ++r) {
+    const int k = r * G + l;
+    if (k < N) {
+      Fe a, b;
+      operands(k, a, b);
+      put(S, out + k, fe_mul(a, b, F));
+    }
+  }
+  __syncwarp(mask);
 }
 
 // The __syncwarp mask of the group of G lanes (G divides 32) that holds

@@ -1,9 +1,9 @@
 // K2: complete Jacobian add (op 0) and double (op 1) over a flat batch.
 //
 // Replaces _add_call and _double_call of cosnarks_tpu/ec/pallas_ec.py with
-// the formulas and selects of curve.add / curve.double (point.cuh's jac_add
-// and jac_double): add-2007-bl, then P = Q -> double, P = -Q -> Z3 = 0,
-// P = inf -> Q, Q = inf -> P (the last select wins); dbl-2009-l.
+// the formulas and selects of curve.add / curve.double: add-2007-bl, then
+// P = Q -> double, P = -Q -> Z3 = 0, P = inf -> Q, Q = inf -> P (the last
+// select wins); dbl-2009-l (jac_group.cuh, shared with K5).
 //
 // What bounds it on the card: latency. By the roofline it is bytes-bound
 // (9 or 6 coordinates of 16 NW bytes against 16 or 7 field products), but the
@@ -29,11 +29,10 @@
 // dbl-2009-l three: {A, B, Y*Z}, {C = B^2, T = (X+B)^2, E^2}, {E*(D - X3)}.
 // So the serial chain is 5 products for an add and 3 for a double. A group
 // takes its point's selects together (every lane reads the same slots, so
-// its branch is uniform) and computes point.cuh's values, so the limbs are
+// its branch is uniform) and computes curve.py's values, so the limbs are
 // the same. Lane l < 3 writes output coordinate l over the point's P rows,
 // and the block stores the rows with coalesced 16-byte stores.
-#include "group.cuh"
-#include "point.cuh"
+#include "jac_group.cuh"
 
 using namespace cosnarks;
 
@@ -52,36 +51,20 @@ enum : int {
   IX1, IY1, IZ1, IX2, IY2, IZ2,
   Z1Z1, Z2Z2, T1, T2, U1, U2, S1, S2, WW, II, R2, JJ, VV, Z3S, RVX, S1J
 };
-// The double's products reuse the add's last slots (a P = Q add branches
-// to the double before it writes them).
-enum : int { DA = WW, DB, DYZ, DC, DT, DF, DEDX };
+// The double's products reuse the add's last slots from WW on (a P = Q add
+// branches to the double before it writes them).
+static_assert(S1J + 1 - WW >= kDoubleProducts, "the double's slots fit");
 
-// dbl-2009-l (jac_double) on the point in slots (x, y, z); returns output
+// dbl-2009-l (jac_group.cuh) on the point in slots (x, y, z); returns output
 // coordinate l for lanes 0-2.
-__device__ Fe group_double(uint32_t* S, int l, int x, int y, int z,
+__device__ Fe double_coord(uint32_t* S, int l, int x, int y, int z,
                            unsigned mask, const FieldParams& F) {
-  if (l < 3)  // {A = X^2, B = Y^2, YZ}
-    put(S, DA + l, fe_mul(get(S, by_lane(l, x, y, y, y)),
-                          get(S, by_lane(l, x, y, z, z)), F));
-  __syncwarp(mask);
-  const Fe A = get(S, DA), B = get(S, DB);
-  const Fe E = fe_add(fe_dbl(A, F), A, F);
-  if (l < 3) {  // {C = B^2, T = (X + B)^2, E^2}
-    const Fe v = pick(l, B, fe_add(get(S, x), B, F), E);
-    put(S, DC + l, fe_mul(v, v, F));
-  }
-  __syncwarp(mask);
-  const Fe C = get(S, DC);
-  const Fe D = fe_dbl(fe_sub(get(S, DT), fe_add(A, C, F), F), F);
-  const Fe X3 = fe_sub(get(S, DF), fe_dbl(D, F), F);
-  if (l == 0) put(S, DEDX, fe_mul(E, fe_sub(D, X3, F), F));
-  __syncwarp(mask);
-  const Fe C8 = fe_dbl(fe_dbl(fe_dbl(C, F), F), F);
-  return pick(l, X3, fe_sub(get(S, DEDX), C8, F), fe_dbl(get(S, DYZ), F));
+  const Pt R = group_double<kGroup>(S, l, x, y, z, WW, mask, F);
+  return pick(l, R.x, R.y, R.z);
 }
 
-// add-2007-bl with curve.add's selects (jac_add); returns output
-// coordinate l for lanes 0-2.
+// add-2007-bl with curve.add's selects; returns output coordinate l for
+// lanes 0-2.
 __device__ Fe group_add(uint32_t* S, int l, unsigned mask,
                         const FieldParams& F) {
   const int c = l < 3 ? l : 2;
@@ -99,7 +82,7 @@ __device__ Fe group_add(uint32_t* S, int l, unsigned mask,
   const Fe rhalf = fe_sub(get(S, S2), get(S, S1), F);
   const bool h_zero = fe_is_zero(H);
   if (h_zero && fe_is_zero(rhalf))  // P = Q
-    return group_double(S, l, IX1, IY1, IZ1, mask, F);
+    return double_coord(S, l, IX1, IY1, IZ1, mask, F);
   const Fe r = fe_dbl(rhalf, F);
   if (l < 3) {  // {W = (Z1 + Z2)^2, I = (2H)^2, r^2}
     const Fe v = pick(l, fe_add(get(S, IZ1), get(S, IZ2), F), fe_dbl(H, F),
@@ -162,7 +145,7 @@ __global__ void __launch_bounds__(kBlock, 4)
       put(S, c, fe_from_row(rows(c) + p * kRowBytes));
     __syncwarp(mask);
     R = op == 0 ? group_add(S, l, mask, F)
-                : group_double(S, l, IX1, IY1, IZ1, mask, F);
+                : double_coord(S, l, IX1, IY1, IZ1, mask, F);
     // the point's P rows were read by this group alone, into its slots
     if (l < 3) fe_to_row(rows(l) + p * kRowBytes, R);
   }

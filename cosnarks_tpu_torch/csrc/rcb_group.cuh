@@ -35,24 +35,6 @@ namespace cosnarks {
 // reuses the first layer's slots, the double's three layers take eight.
 constexpr int kRcbProducts = 8;
 
-// One layer of N independent products: product k goes to slot out + k and
-// is computed by lane k mod G; operands(k, a, b) sets its two factors.
-template <int G, int N, class Operands>
-__device__ __forceinline__ void rcb_layer(uint32_t* S, int l, int out,
-                                          unsigned mask, const FieldParams& F,
-                                          Operands operands) {
-#pragma unroll
-  for (int r = 0; r < (N + G - 1) / G; ++r) {
-    const int k = r * G + l;
-    if (k < N) {
-      Fe a, b;
-      operands(k, a, b);
-      put(S, out + k, fe_mul(a, b, F));
-    }
-  }
-  __syncwarp(mask);
-}
-
 // Output coordinates of the add and the madd from their second layer
 // {A, ..., F} at slots pr..pr+5: (B - A, D + C, F + E).
 template <int G, class Emit>
@@ -73,7 +55,7 @@ __device__ __forceinline__ void rcb_add(uint32_t* S, int l, int p, int q,
                                         int pr, int b3, unsigned mask,
                                         const FieldParams& F, Emit emit) {
   // X1, Y1, Z1, X1+Y1, Y1+Z1, X1+Z1 times the same sums of Q
-  rcb_layer<G, 6>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
+  group_layer<G, 6>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
     const int i = by_lane(k, 0, 1, 2, 0, 1, 0);
     const int j = by_lane(k, 0, 0, 0, 1, 2, 2);
     a = fe_add(get(S, p + i), keep_if(k >= 3, get(S, p + j)), F);
@@ -88,7 +70,7 @@ __device__ __forceinline__ void rcb_add(uint32_t* S, int l, int p, int q,
   const Fe z = fe_add(t1, t2b, F);
   const Fe t1m = fe_sub(t1, t2b, F);
   __syncwarp(mask);  // every lane has read the first layer's products
-  rcb_layer<G, 6>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
+  group_layer<G, 6>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
     a = pick(k, t4, t3, y, t1m, t0x3, z);
     b = pick(k, y, t1m, t0x3, z, t3, t4);
   });
@@ -102,7 +84,7 @@ __device__ __forceinline__ void rcb_madd(uint32_t* S, int l, int p, int q,
                                          int pr, int b3, unsigned mask,
                                          const FieldParams& F, Emit emit) {
   // X1, Y1, X1+Y1, Z1, Z1 times x2, y2, x2+y2, x2, y2
-  rcb_layer<G, 5>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
+  group_layer<G, 5>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
     a = fe_add(get(S, p + by_lane(k, 0, 1, 0, 2, 2)),
                keep_if(k == 2, get(S, p + 1)), F);
     b = fe_add(get(S, q + by_lane(k, 0, 1, 0, 0, 1)),
@@ -117,7 +99,7 @@ __device__ __forceinline__ void rcb_madd(uint32_t* S, int l, int p, int q,
   const Fe z = fe_add(t1, t2, F);
   const Fe t1m = fe_sub(t1, t2, F);
   __syncwarp(mask);  // every lane has read the first layer's products
-  rcb_layer<G, 6>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
+  group_layer<G, 6>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
     a = pick(k, t5, t3, y, t1m, t0x3, z);
     b = pick(k, y, t1m, t0x3, z, t3, t5);
   });
@@ -131,20 +113,20 @@ __device__ __forceinline__ void rcb_double(uint32_t* S, int l, int p, int pr,
                                            int b3, unsigned mask,
                                            const FieldParams& F, Emit emit) {
   // Y Y, Y Z, Z Z, X Y
-  rcb_layer<G, 4>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
+  group_layer<G, 4>(S, l, pr, mask, F, [&](int k, Fe& a, Fe& b) {
     a = get(S, p + by_lane(k, 1, 1, 2, 0));
     b = get(S, p + by_lane(k, 1, 2, 2, 1));
   });
   const Fe t0 = get(S, pr);
   const Fe z3 = fe_dbl(fe_dbl(fe_dbl(t0, F), F), F);
   const Fe t2b = mul_b3(get(S, pr + 2), b3, F);
-  rcb_layer<G, 2>(S, l, pr + 4, mask, F, [&](int k, Fe& a, Fe& b) {
+  group_layer<G, 2>(S, l, pr + 4, mask, F, [&](int k, Fe& a, Fe& b) {
     a = pick(k, t2b, get(S, pr + 1));
     b = z3;
   });
   const Fe t0m = fe_sub(t0, fe_add(fe_dbl(t2b, F), t2b, F), F);
   const Fe y3 = fe_add(t0, t2b, F);
-  rcb_layer<G, 2>(S, l, pr + 6, mask, F, [&](int k, Fe& a, Fe& b) {
+  group_layer<G, 2>(S, l, pr + 6, mask, F, [&](int k, Fe& a, Fe& b) {
     a = t0m;
     b = pick(k, y3, get(S, pr + 3));
   });

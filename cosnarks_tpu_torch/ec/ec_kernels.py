@@ -6,11 +6,11 @@ twenty-four limbs, twelve words (BLS12-381 G1); each wrapper launches the
 build of its curve's width and counts its launches under (words, op). All
 compute with canonical values at every step, so their output limbs equal
 the plain versions' exactly. The field arithmetic they share is
-csrc/field.cuh, the curve formulas csrc/point.cuh. K2, K3, K4 and K6 give
-each point (fold lane, segment) a group of threads that runs the formula's
-field products in layers, one product per lane, with operands passed
-through shared-memory slots (csrc/group.cuh); K5 gives each point one
-thread, with intermediates in registers.
+csrc/field.cuh. K2-K6 give each point (fold lane, segment) a group of
+threads that runs the formula's field products in layers, one product per
+lane, with operands passed through shared-memory slots (csrc/group.cuh):
+the Jacobian formulas in csrc/jac_group.cuh and the kernels that include
+it, RCB in csrc/rcb_group.cuh.
 
 K2 — complete Jacobian add and double (csrc/jacobian.cu). Replaces
   `_add_call` and `_double_call` of cosnarks_tpu/ec/pallas_ec.py: add-2007-bl
@@ -50,7 +50,13 @@ K4 — the MSM bucket fold (csrc/msm_fold.cu). Replaces `_level0_call` in
 K5 — complete Jacobian + affine mixed add, optional validity mask
   (csrc/jacobian_madd.cu). Replaces `_madd_call`: madd-2007-bl with the
   selects of `curve.madd` (P=-Q -> inf, P=Q -> double, P=inf -> (x2, y2, 1),
-  then the mask).
+  then the mask). No proving path calls `curve.madd`; its shapes are bucket
+  accumulation's, up to 2^20 points a launch. Each point has a group of 2
+  or 4 threads (`madd_geometry`, by width and batch size) that runs the 11
+  products in the five layers of `MADD_LAYERS` (a chain of 5 instead of
+  11), and a P = Q point K2's double (csrc/jac_group.cuh); the block stages
+  the coordinates as K2 does, point-major, so a point's slots reuse its
+  rows' shared memory.
 K6 — the weighted bucket reduction sum_j (j+1) S_j per window
   (csrc/wreduce.cu). Replaces `_wreduce_call` with segmented running sums
   across the card: each window splits into P segments of W / P buckets
@@ -72,8 +78,8 @@ above their bounds (PERF.md's kernel table): they are latency- and
 occupancy-bound. One thread per point or lane runs the formula's products
 as one serial chain and keeps ~30 field elements live (130-184 registers,
 nvcc --resource-usage in the smoke output), so few warps per SM hide the
-chains; K2-K4's and K6's groups of threads cut the chain to the formula's
-depth in layers, while K5 keeps one thread per point.
+chains; the groups of threads cut the chain to the formula's depth in
+layers.
 
 Dispatch: CPU tensors take the plain versions (the formulas of
 :mod:`.curve` over :class:`PlainFqOps`); CUDA tensors launch or raise.
@@ -486,6 +492,64 @@ def proj_fold(spec, qx, qy, qz, flags, K: int):
 
 MADD, MADD_MASKED = 0, 1
 
+# curve.madd as csrc/jacobian_madd.cu runs it on a group of threads per
+# point, in RCB_SCHEDULE's notation: "madd" is madd-2007-bl in five layers
+# of products, "double" dbl-2009-l in three (csrc/jac_group.cuh), which a
+# P = Q point runs instead after the third layer of "madd" (on P's X1, Y1,
+# Z1 as X, Y, Z). The selects are the kernel's and curve.madd's: P = inf
+# gives (x2, y2, 1) before any layer; H = 0 and rhalf = 0 (P = Q) the
+# double; H = 0 alone (P = -Q) Z3 = 0; an invalid point P.
+MADD_LAYERS = {
+    "madd": {
+        "in": ("X1", "Y1", "Z1", "x2", "y2"),
+        "steps": (
+            (("Z1Z1", "Z1", "Z1"),),
+            (("U2", "x2", "Z1Z1"), ("Z1c", "Z1", "Z1Z1")),
+            {"H": "U2 - X1"},
+            (("S2", "y2", "Z1c"), ("HH", "H", "H"),
+             ("ZH", "Z1 + H", "Z1 + H")),
+            {"rhalf": "S2 - Y1", "r": "2*rhalf", "I": "4*HH"},
+            (("J", "H", "I"), ("V", "X1", "I"), ("r2", "r", "r")),
+            {"X3": "r2 - J - 2*V", "VX": "V - X3"},
+            (("rVX", "r", "VX"), ("Y1J", "Y1", "J")),
+        ),
+        "out": ("X3", "rVX - 2*Y1J", "ZH - Z1Z1 - HH"),
+    },
+    "double": {
+        "in": ("X", "Y", "Z"),
+        "steps": (
+            (("A", "X", "X"), ("B", "Y", "Y"), ("YZ", "Y", "Z")),
+            {"E": "3*A"},
+            (("C", "B", "B"), ("T", "X + B", "X + B"), ("F", "E", "E")),
+            {"D": "2*T - 2*A - 2*C", "X3": "F - 2*D", "DX": "D - X3"},
+            (("EDX", "E", "DX"),),
+        ),
+        "out": ("X3", "EDX - 8*C", "2*YZ"),
+    },
+}
+
+# Launch geometry of K5 by field width: (threads per point, threads per
+# block) up to GROUP_WIDE_MAX points ("latency") and above ("throughput").
+# scripts/torch_k5_sweep.py timed groups of 1, 2 and 4 in blocks of 64-256
+# at 1, 32, 2^14, 2^17 and 2^20 points, masked and not, on an H100
+# (PERF.md): 4 threads a point, the shortest chain, won at 1 and 32 points
+# at both widths (the block size within 4 %); above, 2 won at 8 words (2 x
+# 128 fastest at 2^17 and 2^20, within 4 % of 2 x 64 at 2^14 unmasked) and 4
+# at 12 (4 x 128 fastest at 2^17 and 2^20, 6 % behind 4 x 256 at 2^14).
+# One thread a point, the slots staged the same way, was 2.0x / 1.9x slower
+# than the table's choice at 2^20, so the kernel is built for 2 and 4.
+MADD_GEOMETRY = {8: {"latency": (4, 64), "throughput": (2, 128)},
+                 12: {"latency": (4, 64), "throughput": (4, 128)}}
+
+
+def madd_geometry(total: int, words: int):
+    """(group, threads, blocks) of K5 over `total` points at `words` 32-bit
+    words: a group of `group` threads per point, threads // group points
+    per block."""
+    group, threads = MADD_GEOMETRY[words][
+        "latency" if total <= GROUP_WIDE_MAX else "throughput"]
+    return group, threads, -(-total // (threads // group))
+
 
 def madd_plain(spec, P, Q_affine, valid=None):
     return curve._madd_formula(_plain_ops(spec), P, Q_affine, valid)
@@ -500,6 +564,7 @@ def madd_launch(spec, coords, valid=None):
     if len(coords) != 5:
         raise ValueError("the mixed add takes x1, y1, z1, x2, y2")
     check_operands(coords, n, device)
+    check_aligned(coords)
     total = coords[0].shape[0]
     if any(c.shape[0] != total for c in coords):
         raise ValueError("coordinate batch sizes differ")
@@ -509,13 +574,15 @@ def madd_launch(spec, coords, valid=None):
         return out
     mode = MADD if valid is None else MADD_MASKED
     words = field_words(spec.ops.field)
+    group, threads, blocks = madd_geometry(total, words)
     lib = _build.load("jacobian_madd", words)
     with torch.cuda.device(device):
         launch(lib.cosnarks_jacobian_madd, ctypes.c_int(mode),
                *[ptr(a) for a in coords],
                ptr(valid) if valid is not None else None,
                *[ptr(o) for o in out], ctypes.c_int64(total),
-               field_params(spec.ops.field))
+               ctypes.c_int(group), ctypes.c_int(threads),
+               ctypes.c_int(blocks), field_params(spec.ops.field))
     count(madd_launch, (words, mode), total)
     return out
 

@@ -154,8 +154,9 @@ def test_launch_modes_tell_the_widths_apart(field, words):
 @pytest.mark.parametrize("kernel", ["K5", "K5 masked", "K6"])
 def test_k5_k6_launch_their_width_and_count_under_it(kernel, monkeypatch):
     """K5 and K6 are among the 12-word builds; on a BLS12-381 G1 field their
-    launch wrappers load the 12-word library and count the launch under
-    (12, op) (K6: (12, W)). The card is replaced by a recorder: the
+    launch wrappers load the 12-word library, launch at the 12-word
+    geometry (`madd_geometry`, `wreduce_geometry`) and count the launch
+    under (12, op) (K6: (12, W)). The card is replaced by a recorder: the
     wrappers' device checks pass CPU tensors and the launch records its
     entry point and arguments."""
     assert {("jacobian_madd", 12), ("wreduce", 12)} <= set(_build.builds())
@@ -193,4 +194,6 @@ def test_k5_k6_launch_their_width_and_count_under_it(kernel, monkeypatch):
         mode = ek.MADD_MASKED if valid is not None else ek.MADD
         assert loaded == [("jacobian_madd", 12)]
         assert ek.madd_launch.launches == {(12, mode): 1}
-        assert launched[0][0] == "K5" and launched[0][1][0].value == mode
+        fn, args = launched[0]
+        assert fn == "K5" and args[0].value == mode
+        assert [a.value for a in args[10:14]] == [4, *ek.madd_geometry(4, 12)]
