@@ -33,6 +33,18 @@ Phases, one JSON line each; any failure exits non-zero:
      BLS12-381 synthetic zkey, every party the same proof, verified by
      verify_bls12_381, every 12-word K1-K4 prover mode and K1 at 8 words
      (Fr) launched during the warm prove;
+  3d. co-PLONK through the port's artifact IO: a domain-2^16 BN254 PLONK
+     zkey of scripts/torch_plonk_fixture.py (squaring chain, two public
+     inputs, four snarkjs additions) read by parse_plonk_zkey, each party's
+     witness through split_witness_rep3 -> .shared bytes ->
+     read_shared_witness, then the 3-party Rep3 PLONK prover twice: every
+     party the same proof, verified by plonk.verify, per-party round
+     seconds, peak device memory and every 8-word prover mode launched
+     during the warm prove;
+  3e. the same zkey through split_witness_shamir and the 3-party Shamir
+     (n = 3, t = 1) PLONK prover once, the same checks; then one Shamir
+     pair refill of the size round 3 burns (18 x 4n pairs), timed, with
+     its peak device memory;
   4. a 2^20-point G1 MSM at c = 15 over points [k_i]G made on the card,
      checked against the host's [sum s_i k_i]G;
   4b. the same MSM through the other split, _host_horner(_pippenger_wsums):
@@ -43,12 +55,13 @@ Phases, one JSON line each; any failure exits non-zero:
      255-bit scalar), K4 and K6 at 12 words, both checked against the
      host, then three pairs taking turns;
   5. main_path_loss: K1-K3's prover modes timed (and checked) at every
-     launch-size bucket of the three proofs, K4's at every (L, K) they
+     launch-size bucket of the five proofs, K4's at every (L, K) they
      launched, each at its width, and each mode's loss per proof, sum of
      launches x (ms - bound);
   6. the kernel table (every mode of K1-K6 at every checked shape and
      width, each with its launches, the phase that counted them and its
-     main-path loss);
+     main-path loss, and its launches and loss in each of the five
+     proofs);
      then the card's name and power limit; then
      {"ok": true, "device": {...}} as the last line.
 Imports nothing of JAX or the JAX package; needs one CUDA card.
@@ -69,7 +82,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 BN_PHASE, BLS_PHASE = "rep3_groth16", "bls12_381_rep3_groth16"
-PROOFS = (BN_PHASE, "shamir_groth16", BLS_PHASE)
+PROOFS = (BN_PHASE, "shamir_groth16", BLS_PHASE, "rep3_plonk", "shamir_plonk")
 # K6's window shapes (windows, buckets, name) at each width: 2^16 points at
 # c = 13, 2^20 at c = 15, and at 12 words 2^20 at c = 16 (phase 4c)
 K6_SHAPES = {8: ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15")),
@@ -148,8 +161,13 @@ def main() -> int:
     from cosnarks_tpu_torch.groth16 import drivers, prove, setup
     from cosnarks_tpu_torch.groth16.verify import (verify_bls12_381,
                                                    verify_bn254)
+    from cosnarks_tpu_torch.io import shared
     from cosnarks_tpu_torch.mpc import rep3, shamir
     from cosnarks_tpu_torch.mpc.net.local import run_parties
+    from cosnarks_tpu_torch.plonk import drivers as plonk_drivers
+    from cosnarks_tpu_torch.plonk import prove as plonk_prove
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    from torch_plonk_fixture import rep3_plonk_case
 
     dev = torch.device("cuda")
     ct.set_default_device(dev)
@@ -647,6 +665,16 @@ def main() -> int:
                 f"{'' if nw == 8 else ' w12'} L={L} K={k}": n
                 for ((nw, m), L, k), n in sorted(shapes.items())}
 
+    def record(phase):
+        """Keep the launch counts, sizes and K4 shapes of `phase`'s run;
+        the phase line's launch fields."""
+        counts_by_phase[phase] = by_op = read_counts()
+        sizes_by_phase[phase] = sizes = read_sizes()
+        shapes_by_phase[phase] = shapes = read_shapes()
+        return {"launches": {k: sum(v.values()) for k, v in by_op.items()},
+                "launches_by_mode": by_op, "launch_sizes": sizes,
+                "fold_shapes": shape_names(shapes)}
+
     def require_launched(phase, names):
         """Fail unless every mode in `names` launched in `phase`'s run."""
         got = counts_by_phase[phase]
@@ -699,18 +727,13 @@ def main() -> int:
     res, t_first = run_prove(rep3_party, zkey, w)
     clear_counts()
     res, t_warm = run_prove(rep3_party, zkey, w)
-    counts_by_phase["rep3_groth16"] = by_op = read_counts()
-    sizes_by_phase["rep3_groth16"] = sizes = read_sizes()
-    shapes_by_phase["rep3_groth16"] = shapes = read_shapes()
+    launched = record("rep3_groth16")
     require_launched("rep3_groth16", prover_modes)
     emit({"phase": "rep3_groth16", "domain": zkey.domain_size,
           "zkey_seconds": t_zkey, "first_prove_s": t_first,
           "warm_prove_s": t_warm,
           "verified": True,
-          "phase_seconds_by_party": [r[1] for r in res],
-          "launches": {k: sum(v.values()) for k, v in by_op.items()},
-          "launches_by_mode": by_op, "launch_sizes": sizes,
-          "fold_shapes": shape_names(shapes)})
+          "phase_seconds_by_party": [r[1] for r in res], **launched})
     del shares, res
 
     # ---- phase 3b: 3-party Shamir (n = 3, t = 1) on the same zkey --------
@@ -724,16 +747,11 @@ def main() -> int:
 
     clear_counts()
     res, t_shamir = run_prove(shamir_party, zkey, w)
-    counts_by_phase["shamir_groth16"] = by_op = read_counts()
-    sizes_by_phase["shamir_groth16"] = sizes = read_sizes()
-    shapes_by_phase["shamir_groth16"] = shapes = read_shapes()
+    launched = record("shamir_groth16")
     require_launched("shamir_groth16", prover_modes)
     emit({"phase": "shamir_groth16", "domain": zkey.domain_size,
           "n": 3, "t": 1, "prove_s": t_shamir, "verified": True,
-          "phase_seconds_by_party": [r[1] for r in res],
-          "launches": {k: sum(v.values()) for k, v in by_op.items()},
-          "launches_by_mode": by_op, "launch_sizes": sizes,
-          "fold_shapes": shape_names(shapes)})
+          "phase_seconds_by_party": [r[1] for r in res], **launched})
     del zkey, sh_shares, res
     torch.cuda.empty_cache()
 
@@ -753,19 +771,94 @@ def main() -> int:
     res, t_first = run_prove(bls_party, bzkey, bw, verify_bls12_381)
     clear_counts()
     res, t_warm = run_prove(bls_party, bzkey, bw, verify_bls12_381)
-    counts_by_phase[BLS_PHASE] = by_op = read_counts()
-    sizes_by_phase[BLS_PHASE] = sizes = read_sizes()
-    shapes_by_phase[BLS_PHASE] = shapes = read_shapes()
+    launched = record(BLS_PHASE)
     require_launched(BLS_PHASE, bls_modes)
     emit({"phase": BLS_PHASE, "curve": "bls12_381",
           "domain": bzkey.domain_size, "zkey_seconds": t_bzkey,
           "first_prove_s": t_first, "warm_prove_s": t_warm,
           "verified": True, "parties_agree": True,
-          "phase_seconds_by_party": [r[1] for r in res],
-          "launches": {k: sum(v.values()) for k, v in by_op.items()},
-          "launches_by_mode": by_op, "launch_sizes": sizes,
-          "fold_shapes": shape_names(shapes)})
+          "phase_seconds_by_party": [r[1] for r in res], **launched})
     del bzkey, b_shares, res
+    torch.cuda.empty_cache()
+
+    # ---- phase 3d: 3-party Rep3 PLONK at domain 2^16, through the IO ----
+    t0 = time.perf_counter()
+    case = rep3_plonk_case(logn, dev)
+    t_pzkey = time.perf_counter() - t0
+    pzk = case.zk
+
+    def run_plonk(make_party):
+        """Prove on three parties; (per-party (proof, round seconds),
+        wall seconds, peak device bytes). Fails unless every party returns
+        the same proof and it verifies."""
+        def party(net):
+            drv, public, share = make_party(net)
+            timings = {}
+            proof = plonk_prove.prove(pzk, drv, public, share,
+                                      timings=timings)
+            return proof, timings
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = run_parties([party] * 3)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        case.check([r[0] for r in res])
+        return res, seconds, torch.cuda.max_memory_allocated()
+
+    res, t_first, mem_first = run_plonk(case.party)
+    clear_counts()
+    res, t_warm, mem_warm = run_plonk(case.party)
+    launched = record("rep3_plonk")
+    require_launched("rep3_plonk", prover_modes)
+    emit({"phase": "rep3_plonk", "domain": pzk.domain_size,
+          "n_additions": pzk.n_additions, "zkey_seconds": t_pzkey,
+          "zkey_bytes": len(case.zkey_bytes), "first_prove_s": t_first,
+          "warm_prove_s": t_warm, "verified": True, "parties_agree": True,
+          "peak_device_bytes": {"first": mem_first, "warm": mem_warm},
+          "round_seconds_by_party": [r[1] for r in res], **launched})
+    del res
+    torch.cuda.empty_cache()
+
+    # ---- phase 3e: 3-party Shamir (n = 3, t = 1) PLONK on the same zkey ----
+    s_files = shared.split_witness_shamir(pzk.fr, case.wtns,
+                                          pzk.n_public + 1, 3, 1,
+                                          random.Random(0x5A18), device=dev)
+
+    def plonk_shamir_party(net):
+        f = shared.read_shared_witness(s_files[net.id], device=dev)
+        state = shamir.ShamirState.setup(net, pzk.fr, 1, pairs=64,
+                                         seed=bytes([net.id + 0x61]) * 32)
+        return (plonk_drivers.ShamirPlonkDriver(pzk.fr, net, state),
+                f.public_inputs, f.share_a)
+
+    clear_counts()
+    res, t_sh, mem_sh = run_plonk(plonk_shamir_party)
+    launched = record("shamir_plonk")
+    require_launched("shamir_plonk", prover_modes)
+    del s_files
+    torch.cuda.empty_cache()
+    # round 3 burns 18 x 4n pairs in one degree reduction: one refill of
+    # that size on its own, timed, with its peak device memory
+    n_pairs = 18 * 4 * pzk.domain_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run_parties([lambda net: shamir.ShamirState.setup(
+        net, pzk.fr, 1, pairs=n_pairs, seed=bytes([net.id + 0x71]) * 32)
+        for _ in range(3)])
+    torch.cuda.synchronize()
+    emit({"phase": "shamir_plonk", "domain": pzk.domain_size, "n": 3,
+          "t": 1, "prove_s": t_sh, "verified": True, "parties_agree": True,
+          "peak_device_bytes": mem_sh,
+          "round_seconds_by_party": [r[1] for r in res],
+          "refill_pairs": {"pairs": n_pairs,
+                           "seconds": time.perf_counter() - t0,
+                           "peak_device_bytes":
+                               torch.cuda.max_memory_allocated()},
+          **launched})
+    del case, pzk, res
     torch.cuda.empty_cache()
 
     # ---- phase 4: bench.py's shape: 2^20-point G1 MSM at c = 15 ----------
@@ -879,11 +972,19 @@ def main() -> int:
 
     # ---- phase 5: the proofs' loss, launch size by launch size -----------
     # Each K1-K3 prover mode, at each width, is timed at every size bucket
-    # at which the warm Rep3, the Shamir or the BLS12-381 proof launched it
+    # at which one of the five proofs (Groth16: the warm Rep3, the Shamir
+    # and the BLS12-381 one; PLONK: the warm Rep3 and the Shamir one)
+    # launched it
     # (random canonical operands, ordinary points), and each K4 mode at
     # every exact (L, K) they launched (random operands, phase 2's flags),
     # held against its plain version, and its loss per proof summed as
     # launches x (ms - bound_ms), a bucket at or below its bound adding 0
+    def k1_plain(F_, x, y, chunk=1 << 20):
+        """K1's plain version in chunks of 2^20 products (its temporaries
+        take 10 KB a product)."""
+        return torch.cat([mont.mul_plain(F_, x[i:i + chunk], y[i:i + chunk])
+                          for i in range(0, x.shape[0], chunk)])
+
     def case(w, launch, plain, ncoords, nout, field_muls):
         def make(n):
             c = [w.rand_fe(n) for _ in range(ncoords)]
@@ -898,7 +999,7 @@ def main() -> int:
         cases.update({
             "K1 mont_mul" + w.tag: case(
                 w, lambda c, F_=F_: (mont_kernel.mul(F_, *c),),
-                lambda c, F_=F_: (mont.mul_plain(F_, *c),), 2, 1, 1),
+                lambda c, F_=F_: (k1_plain(F_, *c),), 2, 1, 1),
             "K2 jacobian add" + w.tag: case(
                 w, lambda c, g_=g_: ek.jacobian_launch(g_, ek.JAC_ADD, c),
                 lambda c, g_=g_: ek.add_plain(g_, tuple(c[:3]),
@@ -972,6 +1073,9 @@ def main() -> int:
         counted_in = phase or (BN_PHASE if mode[0] == 8 else BLS_PHASE)
         got = counts_by_phase[counted_in]
         row["launches"] = got[fn.__qualname__].get(key_str(mode), 0)
+        row["launches_by_proof"] = {
+            ph: counts_by_phase[ph][fn.__qualname__].get(key_str(mode), 0)
+            for ph in PROOFS}
         row["reached_by"] = phase or "kernel_check"
         row["words"] = mode[0]
         if row["mode"] in cases:
@@ -979,11 +1083,15 @@ def main() -> int:
                 row["mode"]].get(str(mont_kernel.size_bucket(
                     row["shape"][0])), 0)
             row["main_path_loss_ms"] = loss[counted_in][row["mode"]]
+            row["main_path_loss_ms_by_proof"] = {
+                ph: loss[ph][row["mode"]] for ph in PROOFS}
         elif row["mode"] in fold_modes.values():
             k, L = row["shape"]
             row["launches_at_shape"] = shapes_by_phase[counted_in].get(
                 (mode, L, k), 0) if row["flags"] == "smoke" else 0
             row["main_path_loss_ms"] = loss[counted_in][row["mode"]]
+            row["main_path_loss_ms_by_proof"] = {
+                ph: loss[ph][row["mode"]] for ph in PROOFS}
         else:
             row["main_path_loss_ms"] = row["launches"] * max(
                 0.0, row["ms"] - row["bound_ms"])

@@ -12,7 +12,7 @@ import torch
 
 from . import resolve_device
 from .ff import spec as _spec
-from .io.zkey import Groth16Zkey
+from .io.zkey import Groth16Zkey, PlonkZkey
 from .mpc.rep3 import Share
 
 _FIELDS = {f.name: f for f in (_spec.BN254_FR, _spec.BN254_FQ,
@@ -30,16 +30,32 @@ def share_from_numpy(a, b, device=None) -> Share:
     return Share(limbs_from_numpy(a, device), limbs_from_numpy(b, device))
 
 
+def _copy(value):
+    """numpy arrays copied, tuples / lists of them copied element-wise."""
+    if isinstance(value, np.ndarray):
+        return np.array(value)
+    if isinstance(value, (tuple, list)):
+        return type(value)(_copy(v) for v in value)
+    return value
+
+
+def _zkey_from_numpy(cls, zkey):
+    kwargs = {}
+    for field in cls.__dataclass_fields__:
+        value = getattr(zkey, field)
+        kwargs[field] = (_FIELDS[value.name] if field in ("fq", "fr")
+                         else _copy(value))
+    return cls(**kwargs)
+
+
 def zkey_from_numpy(zkey) -> Groth16Zkey:
     """An object with the Groth16Zkey fields (the JAX package's zkey: numpy
     arrays and Field objects) -> the port's Groth16Zkey with the port's own
     Field objects."""
-    kwargs = {}
-    for field in Groth16Zkey.__dataclass_fields__:
-        value = getattr(zkey, field)
-        if field in ("fq", "fr"):
-            value = _FIELDS[value.name]
-        elif isinstance(value, np.ndarray):
-            value = np.array(value)
-        kwargs[field] = value
-    return Groth16Zkey(**kwargs)
+    return _zkey_from_numpy(Groth16Zkey, zkey)
+
+
+def plonk_zkey_from_numpy(zkey) -> PlonkZkey:
+    """An object with the PlonkZkey fields (the JAX package's parsed PLONK
+    zkey) -> the port's PlonkZkey with the port's own Field objects."""
+    return _zkey_from_numpy(PlonkZkey, zkey)

@@ -2,8 +2,8 @@
 
 Inter-party transport only (the co-snarks `Network` trait: id / send(to) /
 recv(from) / ordered per peer). Messages are tensors or tuples of tensors;
-the byte wire format for transports that cross processes comes with the
-transport slice.
+transports that cross processes encode them with the typed wire format
+(wire.py, `to_wire` / `from_wire`).
 """
 
 from __future__ import annotations
@@ -11,6 +11,8 @@ from __future__ import annotations
 import abc
 import contextlib
 import threading
+
+from . import wire
 
 
 class Network(abc.ABC):
@@ -174,3 +176,13 @@ def join(*thunks):
         if e is not None:
             raise e
     return results
+
+
+def to_wire(msg) -> bytes:
+    """Message -> bytes via the typed TLV format (wire.py) — no pickle, no
+    code execution on decode, frame length capped."""
+    return wire.encode(msg)
+
+
+def from_wire(data: bytes):
+    return wire.decode(data)

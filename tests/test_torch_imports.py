@@ -1,5 +1,6 @@
 """The port imports neither JAX nor the JAX package: every module of
-cosnarks_tpu_torch and chip_smoke.py, checked on its syntax tree."""
+cosnarks_tpu_torch, chip_smoke.py and the port's PLONK zkey fixture
+(scripts/torch_plonk_fixture.py), checked on its syntax tree."""
 
 import ast
 from pathlib import Path
@@ -7,8 +8,9 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-FILES = sorted((ROOT / "cosnarks_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+PACKAGE = sorted((ROOT / "cosnarks_tpu_torch").rglob("*.py"))
+FILES = PACKAGE + [ROOT / "chip_smoke.py",
+                   ROOT / "scripts" / "torch_plonk_fixture.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -33,9 +35,10 @@ def test_port_imports_no_jax(path):
 
 
 def test_port_package_is_complete():
-    names = {str(p.relative_to(ROOT / "cosnarks_tpu_torch")) for p in FILES
-             if p.name != "chip_smoke.py"}
+    names = {str(p.relative_to(ROOT / "cosnarks_tpu_torch")) for p in PACKAGE}
     for module in ("ff/mont.py", "ff/mont_kernel.py", "ec/ec_kernels.py",
                    "ec/msm.py", "groth16/prove.py", "convert.py",
-                   "mpc/shamir.py", "mpc/bridges.py"):
+                   "mpc/shamir.py", "mpc/bridges.py", "io/binformat.py",
+                   "io/shared.py", "mpc/net/wire.py", "plonk/prove.py",
+                   "plonk/verify.py"):
         assert module in names
