@@ -29,11 +29,21 @@ Phases, one JSON line each; any failure exits non-zero:
      and K4's launches by exact (L, K);
   3b. the 3-party Shamir (n = 3, t = 1) Groth16 prover on the same zkey,
      once (warm card and caches): the same checks, with its own counts;
-  3c. the same Rep3 prover over BLS12-381 at domain 2^16, twice: a
+  3c. the co-circom path on the same zkey: its squaring chain written as
+     circom (setup.chain_circom, 2^16 - 2 constraints), the input split by
+     split_input_rep3, the 3-party Rep3 witness extension (vm/), each
+     party's witness Montgomery-encoded on the card by
+     to_shared_witness_file (K1) into a .shared file, read back and
+     proved by the Rep3 prover once: every party the same proof, it
+     verifies, the witness opened from the three files equals the zkey's,
+     K1 launched in to_shared_witness_file and every prover mode in the
+     proof; the line carries VM, file and prove seconds, the wall time,
+     each party's reshare rounds and the launch counts;
+  3d. the same Rep3 prover over BLS12-381 at domain 2^16, twice: a
      BLS12-381 synthetic zkey, every party the same proof, verified by
      verify_bls12_381, every 12-word K1-K4 prover mode and K1 at 8 words
      (Fr) launched during the warm prove;
-  3d. co-PLONK through the port's artifact IO: a domain-2^16 BN254 PLONK
+  3e. co-PLONK through the port's artifact IO: a domain-2^16 BN254 PLONK
      zkey of scripts/torch_plonk_fixture.py (squaring chain, two public
      inputs, four snarkjs additions) read by parse_plonk_zkey, each party's
      witness through split_witness_rep3 -> .shared bytes ->
@@ -41,7 +51,7 @@ Phases, one JSON line each; any failure exits non-zero:
      party the same proof, verified by plonk.verify, per-party round
      seconds, peak device memory and every 8-word prover mode launched
      during the warm prove;
-  3e. the same zkey through split_witness_shamir and the 3-party Shamir
+  3f. the same zkey through split_witness_shamir and the 3-party Shamir
      (n = 3, t = 1) PLONK prover once, the same checks; then one Shamir
      pair refill of the size round 3 burns (18 x 4n pairs), timed, with
      its peak device memory;
@@ -55,12 +65,12 @@ Phases, one JSON line each; any failure exits non-zero:
      255-bit scalar), K4 and K6 at 12 words, both checked against the
      host, then three pairs taking turns;
   5. main_path_loss: K1-K3's prover modes timed (and checked) at every
-     launch-size bucket of the five proofs, K4's at every (L, K) they
+     launch-size bucket of the six proofs, K4's at every (L, K) they
      launched, each at its width, and each mode's loss per proof, sum of
      launches x (ms - bound);
   6. the kernel table (every mode of K1-K6 at every checked shape and
      width, each with its launches, the phase that counted them and its
-     main-path loss, and its launches and loss in each of the five
+     main-path loss, and its launches and loss in each of the six
      proofs);
      then the card's name and power limit; then
      {"ok": true, "device": {...}} as the last line.
@@ -74,6 +84,8 @@ import os
 import random
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 
 import numpy as np
@@ -82,7 +94,9 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 BN_PHASE, BLS_PHASE = "rep3_groth16", "bls12_381_rep3_groth16"
-PROOFS = (BN_PHASE, "shamir_groth16", BLS_PHASE, "rep3_plonk", "shamir_plonk")
+CIRCOM_PHASE = "rep3_circom_groth16"
+PROOFS = (BN_PHASE, "shamir_groth16", CIRCOM_PHASE, BLS_PHASE, "rep3_plonk",
+          "shamir_plonk")
 # K6's window shapes (windows, buckets, name) at each width: 2^16 points at
 # c = 13, 2^20 at c = 15, and at 12 words 2^20 at c = 16 (phase 4c)
 K6_SHAPES = {8: ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15")),
@@ -137,6 +151,19 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
+def count_calls(net, names) -> dict:
+    """Count the calls of each net.<name> into the returned dict. The
+    counters are instance attributes over the methods, so the base class's
+    reshare_backward counts its recv too; `del net.<name>` restores one."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def wrapper(*args, _orig=getattr(net, name), _name=name, **kw):
+            calls[_name] += 1
+            return _orig(*args, **kw)
+        setattr(net, name, wrapper)
+    return calls
+
+
 def smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -166,6 +193,7 @@ def main() -> int:
     from cosnarks_tpu_torch.mpc.net.local import run_parties
     from cosnarks_tpu_torch.plonk import drivers as plonk_drivers
     from cosnarks_tpu_torch.plonk import prove as plonk_prove
+    from cosnarks_tpu_torch.vm import lang, mpc_run
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     from torch_plonk_fixture import rep3_plonk_case
 
@@ -752,10 +780,106 @@ def main() -> int:
     emit({"phase": "shamir_groth16", "domain": zkey.domain_size,
           "n": 3, "t": 1, "prove_s": t_shamir, "verified": True,
           "phase_seconds_by_party": [r[1] for r in res], **launched})
-    del zkey, sh_shares, res
+    del sh_shares, res
+
+    # ---- phase 3c: circom -> Rep3 witness extension -> .shared -> proof --
+    # The co-circom CLI's generate-witness and generate-proof on the same
+    # zkey, through the port's entry points. Two barriers split the parties'
+    # run into three counted stages: the VM (host ints) and
+    # to_shared_witness_file (K1 on the card); writing and reading the
+    # .shared bytes; the proof. A party waits at a barrier outside its turn.
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "chain.circom")
+        with open(src, "w") as fh:
+            fh.write(setup.chain_circom(zkey.n_vars - n_inst))
+        prog = lang.load_program(src)
+    inputs = shared.split_input_rep3(zkey.fr, {"x": w[1]},
+                                     random.Random(0xC1C), device=dev)
+    stages = []  # launch counts of a stage, when all parties arrive
+
+    def stage():
+        torch.cuda.synchronize()
+        stages.append(read_counts())
+        clear_counts()
+
+    barrier = threading.Barrier(3, action=stage, timeout=900)
+
+    def circom_party(net):
+        i = net.id
+        t0 = time.perf_counter()
+        tree = mpc_run.shared_input_to_tree(json.loads(inputs[i]), zkey.fr, i)
+        calls = count_calls(net, ("reshare_backward", "recv"))
+        wit, n_wit_inst, drv = mpc_run.run_rep3_witness_extension(
+            prog, zkey.fr, tree, net, seed=bytes([i + 0x31]) * 32)
+        del net.reshare_backward, net.recv  # back to the class's methods
+        t_vm = time.perf_counter()
+        f = mpc_run.to_shared_witness_file(drv.pr, zkey.fr, wit, n_wit_inst,
+                                           i, device=dev)
+        torch.cuda.synchronize()
+        t_file = time.perf_counter()
+        with net.turn.blocked():
+            barrier.wait()
+        t_write = time.perf_counter()
+        data = shared.write_shared_witness(f)
+        f = shared.read_shared_witness(data, device=dev)
+        torch.cuda.synchronize()
+        t_read = time.perf_counter()
+        with net.turn.blocked():
+            barrier.wait()
+        t_prove = time.perf_counter()
+        state = rep3.Rep3State.setup(net, bytes([i + 0x41]) * 32)
+        timings = {}
+        proof = prove.prove(drivers.Rep3Driver(net, state), zkey,
+                            prove.SharedWitness(f.public_inputs, rep3.Share(
+                                f.share_a, f.share_b)), timings=timings)
+        torch.cuda.synchronize()
+        return {"proof": proof, "data": data, "rounds": calls,
+                "vm_s": t_vm - t0, "to_shared_witness_file_s": t_file - t_vm,
+                "write_read_s": t_read - t_write,
+                "prove_s": time.perf_counter() - t_prove,
+                "phase_seconds": timings}
+
+    clear_counts()
+    t0 = time.perf_counter()
+    res = run_parties([circom_party] * 3)
+    t_circom = time.perf_counter() - t0
+    launched = record(CIRCOM_PHASE)
+    witness_counts, file_counts = stages
+    counts_by_phase[CIRCOM_PHASE + " witness"] = witness_counts
+    proof = res[0]["proof"]
+    if not all(r["proof"] == proof for r in res):
+        raise AssertionError(f"{CIRCOM_PHASE}: parties disagree")
+    files = [shared.read_shared_witness(r["data"], device=dev) for r in res]
+    if any(f.public_inputs != w[:n_inst] for f in files):
+        raise AssertionError(f"{CIRCOM_PHASE}: opened instance differs "
+                             "from the zkey's")
+    if rep3.combine_field_elements(zkey.fr, [rep3.Share(
+            f.share_a, f.share_b) for f in files]) != w[n_inst:]:
+        raise AssertionError(f"{CIRCOM_PHASE}: witness from the .shared "
+                             "files differs from the zkey's")
+    if not verify_bn254(prove.vk_from_zkey(zkey), proof, w[1:n_inst]):
+        raise AssertionError(f"{CIRCOM_PHASE}: proof does not verify")
+    require_launched(CIRCOM_PHASE + " witness", ["K1 mont_mul"])
+    require_launched(CIRCOM_PHASE, prover_modes)
+    vm_s = [r["vm_s"] for r in res]
+    emit({"phase": CIRCOM_PHASE, "constraints": zkey.n_vars - n_inst,
+          "witness_wires": zkey.n_vars, "wall_s": t_circom,
+          "vm_s_by_party": vm_s, "vm_share_of_wall": max(vm_s) / t_circom,
+          "to_shared_witness_file_s_by_party": [
+              r["to_shared_witness_file_s"] for r in res],
+          "write_read_s_by_party": [r["write_read_s"] for r in res],
+          "prove_s_by_party": [r["prove_s"] for r in res],
+          "rounds_by_party": [r["rounds"] for r in res],
+          "verified": True, "parties_agree": True,
+          "witness_matches_zkey": True,
+          "witness_stage_launches": witness_counts,
+          "file_stage_launches": file_counts,
+          "phase_seconds_by_party": [r["phase_seconds"] for r in res],
+          **launched})
+    del zkey, res, files, inputs, prog
     torch.cuda.empty_cache()
 
-    # ---- phase 3c: 3-party Rep3 over BLS12-381 at domain 2^16 ------------
+    # ---- phase 3d: 3-party Rep3 over BLS12-381 at domain 2^16 ------------
     t0 = time.perf_counter()
     bzkey, bw = setup.cached_synthetic_zkey((1 << logn) - 2,
                                             curve_pair=setup.BLS12_381)
@@ -781,7 +905,7 @@ def main() -> int:
     del bzkey, b_shares, res
     torch.cuda.empty_cache()
 
-    # ---- phase 3d: 3-party Rep3 PLONK at domain 2^16, through the IO ----
+    # ---- phase 3e: 3-party Rep3 PLONK at domain 2^16, through the IO ----
     t0 = time.perf_counter()
     case = rep3_plonk_case(logn, dev)
     t_pzkey = time.perf_counter() - t0
@@ -821,7 +945,7 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
 
-    # ---- phase 3e: 3-party Shamir (n = 3, t = 1) PLONK on the same zkey ----
+    # ---- phase 3f: 3-party Shamir (n = 3, t = 1) PLONK on the same zkey ----
     s_files = shared.split_witness_shamir(pzk.fr, case.wtns,
                                           pzk.n_public + 1, 3, 1,
                                           random.Random(0x5A18), device=dev)
@@ -972,8 +1096,9 @@ def main() -> int:
 
     # ---- phase 5: the proofs' loss, launch size by launch size -----------
     # Each K1-K3 prover mode, at each width, is timed at every size bucket
-    # at which one of the five proofs (Groth16: the warm Rep3, the Shamir
-    # and the BLS12-381 one; PLONK: the warm Rep3 and the Shamir one)
+    # at which one of the six proofs (Groth16: the warm Rep3, the Shamir,
+    # the co-circom and the BLS12-381 one; PLONK: the warm Rep3 and the
+    # Shamir one)
     # launched it
     # (random canonical operands, ordinary points), and each K4 mode at
     # every exact (L, K) they launched (random operands, phase 2's flags),

@@ -123,6 +123,23 @@ def _to_zkey(pts) -> np.ndarray:
     return arr
 
 
+def chain_circom(n_constraints: int) -> str:
+    """synthetic_zkey(n_constraints)'s circuit as circom source. Its wire
+    order 1, x (public), s[0..n-1] is the zkey's witness layout, so the
+    circom VM's witness of {"x": 3} proves against that zkey."""
+    return f"""pragma circom 2.0.0;
+template Chain(n) {{
+    signal input x;
+    signal s[n];
+    s[0] <== x * x;
+    for (var i = 1; i < n; i++) {{
+        s[i] <== s[i - 1] * s[i - 1];
+    }}
+}}
+component main {{public [x]}} = Chain({n_constraints});
+"""
+
+
 BN254 = (curves.BN254_G1, curves.BN254_G2)
 BLS12_381 = (curves.BLS12_381_G1, curves.BLS12_381_G2)
 

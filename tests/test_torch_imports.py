@@ -1,6 +1,7 @@
 """The port imports neither JAX nor the JAX package: every module of
-cosnarks_tpu_torch, chip_smoke.py and the port's PLONK zkey fixture
-(scripts/torch_plonk_fixture.py), checked on its syntax tree."""
+cosnarks_tpu_torch, chip_smoke.py, the port's PLONK zkey fixture
+(scripts/torch_plonk_fixture.py) and its VM timing script
+(scripts/torch_vm_turns.py), checked on its syntax tree."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = sorted((ROOT / "cosnarks_tpu_torch").rglob("*.py"))
 FILES = PACKAGE + [ROOT / "chip_smoke.py",
-                   ROOT / "scripts" / "torch_plonk_fixture.py"]
+                   ROOT / "scripts" / "torch_plonk_fixture.py",
+                   ROOT / "scripts" / "torch_vm_turns.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -40,5 +42,7 @@ def test_port_package_is_complete():
                    "ec/msm.py", "groth16/prove.py", "convert.py",
                    "mpc/shamir.py", "mpc/bridges.py", "io/binformat.py",
                    "io/shared.py", "mpc/net/wire.py", "plonk/prove.py",
-                   "plonk/verify.py"):
+                   "plonk/verify.py", "vm/interp.py", "vm/mpc_run.py",
+                   "vm/rep3_batched.py", "mpc/rep3_scalar.py", "mpc/yao.py",
+                   "mpc/rep3_ring.py", "gadgets/poseidon2.py"):
         assert module in names
