@@ -18,7 +18,10 @@ Phases, one JSON line each; any failure exits non-zero:
      window shapes and at 2^16 / c = 13 with whole
      identity segments and with every bucket equal, each on BN254 Fq / G1
      (8 words) and on BLS12-381 Fq / G1 (12 words, rows marked "w12"), and
-     K6 at 12 words also at the 2^20 / c = 16 shape of phase 4c; call K5
+     K6 at 12 words also at the 2^20 / c = 16 shape of phase 4c; on
+     Grumpkin (BN254 Fr, b = -17, rows marked "grumpkin"): K2 at 1 and 2^14
+     points, K3's four modes at 1, 32 and 2^14, K4's two modes at L = 2560
+     and 160, K6 at 2^16 / c = 13 and with every bucket equal; call K5
      through its entry point curve.madd (a broadcast affine Q, a bool
      mask), and show that a wrapper raises on a bad CUDA input instead of
      falling back, K6 on a bucket width that is not a power of two;
@@ -39,6 +42,16 @@ Phases, one JSON line each; any failure exits non-zero:
      K1 launched in to_shared_witness_file and every prover mode in the
      proof; the line carries VM, file and prove seconds, the wall time,
      each party's reshare rounds and the launch counts;
+  3c'. cli_tcp_groth16: the same pipeline through the CLI as separate
+     processes (python -m cosnarks_tpu_torch), the zkey, its verifying key
+     and the circuit written to files: split-input, three generate-witness
+     --protocol REP3 processes at once over plaintext TCP, three
+     generate-proof groth16 processes at once over TLS (the keys of
+     examples/configs/tls), verify (exit 0) and verify with a changed
+     public input (exit 1); the witness opened from the .shared files must
+     be the zkey's and the three proof files byte-identical; the line
+     carries each stage's seconds, each party's phase timings and bytes a
+     peer, beside phase 3c's in-process VM and prove seconds;
   3d. the same Rep3 prover over BLS12-381 at domain 2^16, twice: a
      BLS12-381 synthetic zkey, every party the same proof, verified by
      verify_bls12_381, every 12-word K1-K4 prover mode and K1 at 8 words
@@ -102,6 +115,13 @@ PROOFS = (BN_PHASE, "shamir_groth16", CIRCOM_PHASE, BLS_PHASE, "rep3_plonk",
 K6_SHAPES = {8: ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15")),
              12: ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15"),
                   (16, 32768, "2^20/c=16"))}
+# Grumpkin's rows: the shapes checked a kernel (K1 is the field's, BN254
+# Fr's, and no kernel of the path runs Grumpkin), and their mark
+GRUMPKIN_TAG = " grumpkin"
+GRUMPKIN_SHAPES = {"K2": ("1", "2^14"),
+                   "K3": ("1", "1 (valid)", "32", "2^14"),
+                   "K4": ((2560, None), (160, None)),
+                   "K6": ("2^16/c=13", "all equal")}
 # the phases that run K6 through the wsums split, by (words, W)
 WSUMS_PHASES = {(8, 16384): "msm_wsums_2^20",
                 (12, 32768): "msm_wsums_2^20 w12"}
@@ -109,14 +129,19 @@ WSUMS_PHASES = {(8, 16384): "msm_wsums_2^20",
 
 class Width:
     """A field width the kernels are built for, with the curve whose G1
-    checks it: 8 words on BN254, 12 on BLS12-381."""
+    checks it: 8 words on BN254, 12 on BLS12-381; and Grumpkin (8 words of
+    BN254 Fr, b = -17: the kernels' negated 3b chain), whose rows are marked
+    "grumpkin" and which no proof runs."""
 
-    def __init__(self, g1, gen, dev):
+    def __init__(self, g1, gen, dev, tag=None):
         self.g1, self.F = g1, g1.ops.field
         self.n = self.F.nlimbs
         self.words = self.n // 2
-        self.tag = "" if self.words == 8 else " w12"  # in mode names
-        self.proof = BN_PHASE if self.words == 8 else BLS_PHASE
+        if tag is None:  # in mode names
+            tag = "" if self.words == 8 else " w12"
+        self.tag = tag
+        self.proof = (None if tag == GRUMPKIN_TAG else BN_PHASE
+                      if self.words == 8 else BLS_PHASE)
         # one element at the int64 limb boundary; 32-bit multiplies of one
         # CIOS product (NW x NW products of a and b, NW x NW of m and p,
         # each a lo and a hi multiply, and NW m's): 264 and 588
@@ -134,11 +159,6 @@ class Width:
                           device=self.dev, dtype=torch.int64)
         x[..., self.n - 1] &= self.top_mask
         return x
-
-
-def key_str(key) -> str:
-    """A wrapper's mode key (words, op) as a JSON key."""
-    return f"{key[0]}w:{key[1]}"
 
 
 def pow2(n: int) -> str:
@@ -164,6 +184,126 @@ def count_calls(net, names) -> dict:
     return calls
 
 
+def cli_tcp_groth16(zkey, w, required) -> dict:
+    """The co-circom pipeline as its users run it: every stage a CLI process
+    (python -m cosnarks_tpu_torch), the parties three processes at once on
+    one card. The zkey's squaring chain as circom and its input are split
+    (split-input), the witness extended by three REP3 processes over
+    plaintext TCP (generate-witness), proved by three processes over TLS
+    with the keys of examples/configs/tls (generate-proof groth16) and
+    verified (verify groth16), then refused with a changed public input.
+    Fails unless every process exits as it should, the witness opened from
+    the three .shared files is the zkey's and the three proof files are
+    byte-identical, and unless every generate-witness process launched K1
+    and every generate-proof process each (wrapper, key) of `required`
+    (the launch counts each prints). Returns the phase line's fields."""
+    from cosnarks_tpu_torch.groth16 import prove, setup
+    from cosnarks_tpu_torch.io import jsonio, shared
+    from cosnarks_tpu_torch.io import zkey as zkey_io
+    from cosnarks_tpu_torch.mpc import rep3
+    from torch_cli_procs import party_configs, run_cli
+
+    n_inst = zkey.n_public + 1
+    tls_dir = os.path.join(ROOT, "examples", "configs", "tls")
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        t0 = time.perf_counter()
+        with open(path("chain.circom"), "w") as fh:
+            fh.write(setup.chain_circom(zkey.n_vars - n_inst))
+        with open(path("input.json"), "w") as fh:
+            json.dump({"x": str(w[1])}, fh)
+        with open(path("chain.zkey"), "wb") as fh:
+            fh.write(zkey_io.write_groth16_zkey(zkey))
+        with open(path("vk.json"), "w") as fh:
+            fh.write(jsonio.vkey_to_json(prove.vk_from_zkey(zkey)))
+        t_files = time.perf_counter() - t0
+        zkey_bytes = os.path.getsize(path("chain.zkey"))
+
+        split = run_cli([["split-input", "--input", path("input.json"),
+                          "--out-dir", tmp]], tmp, "split")
+        tcp = party_configs(tmp, "tcp", None)
+        wit = run_cli([["generate-witness", "--protocol", "REP3",
+                        "--circuit", path("chain.circom"), "--input",
+                        path(f"input.json.{i}.shared"), "--config", tcp[i],
+                        "--out", path(f"witness.{i}.shared")]
+                       for i in range(3)], tmp, "generate-witness")
+        files = []
+        for i in range(3):
+            with open(path(f"witness.{i}.shared"), "rb") as fh:
+                files.append(shared.read_shared_witness(fh.read(),
+                                                        device="cpu"))
+        if [f.public_inputs for f in files] != [w[:n_inst]] * 3 or \
+                rep3.combine_field_elements(zkey.fr, [rep3.Share(
+                    f.share_a, f.share_b) for f in files]) != w[n_inst:]:
+            raise AssertionError("cli_tcp_groth16: the witness opened from "
+                                 "the .shared files differs from the zkey's")
+        del files
+        tls = party_configs(tmp, "tls", tls_dir)
+        proof = run_cli([["generate-proof", "groth16", "--zkey",
+                          path("chain.zkey"), "--witness",
+                          path(f"witness.{i}.shared"), "--config", tls[i],
+                          "--out", path(f"proof.{i}.json"), "--public-input",
+                          path(f"public.{i}.json")] for i in range(3)],
+                        tmp, "generate-proof")
+        proof_bytes = []
+        for i in range(3):
+            with open(path(f"proof.{i}.json"), "rb") as fh:
+                proof_bytes.append(fh.read())
+        identical = proof_bytes[0] == proof_bytes[1] == proof_bytes[2]
+        if not identical:
+            raise AssertionError("cli_tcp_groth16: the parties' proof files "
+                                 "differ")
+        with open(path("public.0.json")) as fh:
+            if jsonio.public_from_json(fh.read()) != w[1:n_inst]:
+                raise AssertionError("cli_tcp_groth16: public.0.json is not "
+                                     "the zkey's public input")
+        verify_argv = ["verify", "groth16", "--vk", path("vk.json"),
+                       "--proof", path("proof.0.json"), "--public-input"]
+        ok = run_cli([verify_argv + [path("public.0.json")]], tmp, "verify")
+        with open(path("public.bad.json"), "w") as fh:
+            fh.write(jsonio.public_to_json([(w[1] + 1) % zkey.fr.p]
+                                           + w[2:n_inst]))
+        bad = run_cli([verify_argv + [path("public.bad.json")]], tmp,
+                      "verify-changed", expect=1)
+    for stage_name, runs, need in (("generate-witness", wit,
+                                    [("mul", "8w:0")]),
+                                   ("generate-proof", proof, required)):
+        for i, r in enumerate(runs):
+            missing = [n for n in need
+                       if not r["launches"].get(n[0], {}).get(n[1])]
+            if missing:
+                raise AssertionError(f"cli_tcp_groth16: {stage_name} party "
+                                     f"{i} launched no {missing}: "
+                                     f"{r['launches']}")
+    if ok[0]["stdout"].strip() != "verification: OK" or \
+            bad[0]["stdout"].strip() != "verification: FAILED":
+        raise AssertionError("cli_tcp_groth16: verify said "
+                             f"{ok[0]['stdout']!r} / {bad[0]['stdout']!r}")
+
+    def stage(runs):
+        return {"wall_s": max(r["seconds"] for r in runs),
+                "process_s": [r["seconds"] for r in runs],
+                "phases_ms_by_party": [r["phases_ms"] for r in runs],
+                "net_bytes_by_party": [r["net_bytes_by_peer"] for r in runs],
+                "launches_by_party": [r["launches"] for r in runs]}
+
+    return {"constraints": zkey.n_vars - n_inst, "zkey_bytes": zkey_bytes,
+            "write_files_s": t_files,
+            "stages": {"split-input": stage(split),
+                       "generate-witness (REP3, TCP)": stage(wit),
+                       "generate-proof (groth16, TLS)": stage(proof),
+                       "verify": stage(ok),
+                       "verify (changed public input)": stage(bad)},
+            "tcp_vm_ms_by_party": [r["phases_ms"].get("Witness extension")
+                                   for r in wit],
+            "tls_prove_ms_by_party": [r["phases_ms"].get("Generate proof")
+                                      for r in proof],
+            "witness_matches_zkey": True, "proofs_identical": identical,
+            "verify_ok_exit": 0, "verify_changed_exit": 1}
+
+
 def smi(query: str) -> str:
     out = subprocess.run(
         ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
@@ -183,8 +323,9 @@ def main() -> int:
     from cosnarks_tpu_torch.ec import curve as ec
     from cosnarks_tpu_torch.ec import ec_kernels as ek
     from cosnarks_tpu_torch.ec import host, msm
-    from cosnarks_tpu_torch.ec.curves import BLS12_381_G1, BN254_G1
+    from cosnarks_tpu_torch.ec.curves import BLS12_381_G1, BN254_G1, GRUMPKIN
     from cosnarks_tpu_torch.ff import mont, mont_kernel
+    from cosnarks_tpu_torch.ff.mont_kernel import key_str
     from cosnarks_tpu_torch.groth16 import drivers, prove, setup
     from cosnarks_tpu_torch.groth16.verify import (verify_bls12_381,
                                                    verify_bn254)
@@ -215,6 +356,7 @@ def main() -> int:
     # ---- phase 2: kernels against their plain versions -------------------
     gen = torch.Generator(device=dev).manual_seed(0xC05)
     W8, W12 = Width(BN254_G1, gen, dev), Width(BLS12_381_G1, gen, dev)
+    WG = Width(GRUMPKIN, gen, dev, tag=GRUMPKIN_TAG)
     F = W8.F
     rand_fe = W8.rand_fe
 
@@ -262,7 +404,7 @@ def main() -> int:
     # and the phase whose run gives its launches (None: launched by the
     # checks alone); K1-K4 at both widths, the 12-word modes marked "w12"
     modes = {}
-    for w in (W8, W12):
+    for w in (W8, W12, WG):
         for name, fn, op, proved in (
                 ("K1 mont_mul", mont_kernel.mul, 0, True),
                 ("K2 jacobian add", ek.jacobian_launch, ek.JAC_ADD, True),
@@ -275,17 +417,20 @@ def main() -> int:
                 ("K3 proj double", ek.proj_launch, ek.PROJ_DOUBLE, True),
                 ("K4 fold level 0", ek.fold_launch, 0, True),
                 ("K4 fold projective", ek.fold_launch, 1, True)):
-            modes[name + w.tag] = (fn, (w.words, op),
-                                   w.proof if proved else None)
+            key = (w.words, op) if fn is mont_kernel.mul else (
+                w.words, op, w.g1.name)
+            modes[name + w.tag] = (fn, key, w.proof if proved else None)
     for w in (W8, W12):
-        modes["K5 jacobian madd" + w.tag] = (ek.madd_launch,
-                                             (w.words, ek.MADD), None)
+        modes["K5 jacobian madd" + w.tag] = (
+            ek.madd_launch, (w.words, ek.MADD, w.g1.name), None)
         modes["K5 jacobian madd (masked)" + w.tag] = (
-            ek.madd_launch, (w.words, ek.MADD_MASKED), None)
+            ek.madd_launch, (w.words, ek.MADD_MASKED, w.g1.name), None)
         for nwin, W, shape in K6_SHAPES[w.words]:
             modes[f"K6 wreduce {shape}{w.tag}"] = (
-                ek.wreduce_launch, (w.words, W), WSUMS_PHASES.get(
-                    (w.words, W)))
+                ek.wreduce_launch, (w.words, W, w.g1.name),
+                WSUMS_PHASES.get((w.words, W)))
+    modes[f"K6 wreduce 2^16/c=13{GRUMPKIN_TAG}"] = (
+        ek.wreduce_launch, (8, 4096, WG.g1.name), None)
     rows = {}
 
     def check(name, kernel_fn, plain_fn, nbytes, nmuls, iters,
@@ -348,11 +493,16 @@ def main() -> int:
                 lambda: ek.fold_plain(w.g1, tuple(q), fl, K, proj_q),
                 nbytes, nmuls * w.muls)
 
-    def check_k1_k4(w):
+    def check_k1_k4(w, shapes=None):
         """K1-K4 at width w against their plain versions at the main path's
-        shapes, edge lanes and flag patterns included."""
+        shapes, edge lanes and flag patterns included; with `shapes`, only
+        the kernels and shapes it names (GRUMPKIN_SHAPES)."""
         F, g1, tag, eb = w.F, w.g1, w.tag, w.limb_bytes
         n0 = w.n
+
+        def want(kernel, shape):
+            return shapes is None or shape in shapes.get(kernel, ())
+
         # K1 at the main path's batch sizes: 3 products (one Fq2 product
         # of a G2 point op), 2^15 (an NTT butterfly stage of one share
         # component at domain 2^16), 2^17 (the Fq2 products of a G2 MSM
@@ -360,6 +510,8 @@ def main() -> int:
         n1 = 1 << 20
         a, b = w.rand_fe(n1), w.rand_fe(n1)
         for n, iters in ((3, 200), (1 << 15, 200), (1 << 17, 50), (n1, 20)):
+            if not want("K1", pow2(n)):
+                continue
             x, y = a[:n], b[:n]
             check(f"K1 mont_mul{tag} {pow2(n)}",
                   lambda x=x, y=y: (mont_kernel.mul(F, x, y),),
@@ -396,6 +548,8 @@ def main() -> int:
                                  ("1 (P = Q)", slice(1, 2), 200),
                                  ("3", slice(0, 3), 200),
                                  ("2^14", slice(0, n2), 20)):
+            if not want("K2", label):
+                continue
             Ps, Qs = [x[sl] for x in P], [x[sl] for x in Q]
             n = Ps[0].shape[0]
             add_muls = int(finite[sl].sum()) * 16 + int(same[sl].sum()) * 7
@@ -411,6 +565,8 @@ def main() -> int:
         for label, sl, iters in (("1", slice(0, 1), 200),
                                  ("3 (P = inf)", slice(2, 5), 200),
                                  ("2^14", slice(0, n2), 20)):
+            if not want("K2", label):
+                continue
             Ps = [x[sl] for x in P]
             n = Ps[0].shape[0]
             check(f"K2 jacobian double{tag} {label}",
@@ -439,11 +595,13 @@ def main() -> int:
         )
         for name, op, formula, ncoords, nmuls in k3_modes:
             masked = op == ek.PROJ_MADD_MASKED
-            shapes = [("1", slice(0, 1), 200), ("32", slice(0, 32), 200),
-                      ("2^14", slice(0, n2), 20)]
+            k3_shapes = [("1", slice(0, 1), 200), ("32", slice(0, 32), 200),
+                         ("2^14", slice(0, n2), 20)]
             if masked:
-                shapes.insert(1, ("1 (valid)", slice(1, 2), 200))
-            for label, sl, iters in shapes:
+                k3_shapes.insert(1, ("1 (valid)", slice(1, 2), 200))
+            for label, sl, iters in k3_shapes:
+                if not want("K3", label):
+                    continue
                 Ps, Qs = [x[sl] for x in PP], [x[sl] for x in QQ]
                 vs = valid[sl]
                 n = Ps[0].shape[0]
@@ -479,6 +637,8 @@ def main() -> int:
                                       (160, "all changed", 20),
                                       (160, "all invalid", 20),
                                       (160, "save-prefix on step 0", 20)):
+                if not want("K4", (L, pattern)):
+                    continue
                 kernel_fn, plain_fn, nbytes, nmuls = fold_case(
                     w, L, proj_q, pattern=pattern)
                 check(f"{name}{tag} L={L}"
@@ -546,12 +706,13 @@ def main() -> int:
         return ([x[:n2] for x in PJ], [x[:n2] for x in QA],
                 valid[:n2])
 
-    def check_k6(w):
+    def check_k6(w, shapes=None):
         """K6 at width w at its window shapes, on random projective buckets
         with identity (0 : 1 : 0) lanes on j = 5 mod 16, and at 2^16 / c =
         13 with segments 1 and P - 1 of every window all identity and with
         every bucket the generator (a P = Q add inside each running sum;
-        the result also checked against the host's (W (W + 1) / 2) G)."""
+        the result also checked against the host's (W (W + 1) / 2) G); with
+        `shapes`, only the window shapes and patterns it names."""
         g1 = w.g1
         one = mont.broadcast_one(w.F, (), device=dev)
         gen_pt = ec.encode_points(g1, [g1.generator], device=dev)
@@ -561,6 +722,8 @@ def main() -> int:
         cases += [(20, 4096, "2^16/c=13", "identity segments"),
                   (20, 4096, "2^16/c=13", "all equal")]
         for nwin, W, shape, pattern in cases:
+            if shapes is not None and (pattern or shape) not in shapes["K6"]:
+                continue
             P, group, threads = ek.wreduce_geometry(W, w.words)
             if pattern == "all equal":
                 bk = [x[0].expand(nwin, W, w.n).contiguous() for x in gen_pt]
@@ -635,6 +798,10 @@ def main() -> int:
 
     check_k6(W8)
     check_k6(W12)
+    # Grumpkin (b = -17): K2-K4 and K6 at 8 words on BN254 Fr's constants,
+    # the RCB kernels with 3b = -51 (the chain of 51, then a negation)
+    check_k1_k4(WG, GRUMPKIN_SHAPES)
+    check_k6(WG, GRUMPKIN_SHAPES)
     torch.cuda.empty_cache()
 
     # a CUDA tensor never reaches a plain version: bad inputs raise, and K6
@@ -684,14 +851,14 @@ def main() -> int:
     counts_by_phase, sizes_by_phase, shapes_by_phase = {}, {}, {}
 
     def read_shapes():
-        """K4's launches by exact shape: {((words, mode), L, K):
+        """K4's launches by exact shape: {((words, mode, curve), L, K):
         launches}."""
         return dict(ek.fold_launch.shapes)
 
     def shape_names(shapes):
         return {f"{'projective' if m else 'level 0'}"
                 f"{'' if nw == 8 else ' w12'} L={L} K={k}": n
-                for ((nw, m), L, k), n in sorted(shapes.items())}
+                for ((nw, m, _), L, k), n in sorted(shapes.items())}
 
     def record(phase):
         """Keep the launch counts, sizes and K4 shapes of `phase`'s run;
@@ -862,6 +1029,7 @@ def main() -> int:
     require_launched(CIRCOM_PHASE + " witness", ["K1 mont_mul"])
     require_launched(CIRCOM_PHASE, prover_modes)
     vm_s = [r["vm_s"] for r in res]
+    circom_prove_s = [r["prove_s"] for r in res]
     emit({"phase": CIRCOM_PHASE, "constraints": zkey.n_vars - n_inst,
           "witness_wires": zkey.n_vars, "wall_s": t_circom,
           "vm_s_by_party": vm_s, "vm_share_of_wall": max(vm_s) / t_circom,
@@ -876,8 +1044,20 @@ def main() -> int:
           "file_stage_launches": file_counts,
           "phase_seconds_by_party": [r["phase_seconds"] for r in res],
           **launched})
-    del zkey, res, files, inputs, prog
+    del res, files, inputs, prog
     torch.cuda.empty_cache()
+
+    # ---- phase 3c': the same pipeline through the CLI, as users run it:
+    # split-input, three generate-witness processes over TCP, three
+    # generate-proof processes over TLS, verify ---------------------------
+    t0 = time.perf_counter()
+    cli_line = cli_tcp_groth16(zkey, w, [
+        (modes[n][0].__qualname__, key_str(modes[n][1]))
+        for n in prover_modes])
+    emit({"phase": "cli_tcp_groth16", "wall_s": time.perf_counter() - t0,
+          **cli_line, "in_process_vm_s_by_party": vm_s,
+          "in_process_prove_s_by_party": circom_prove_s})
+    del zkey
 
     # ---- phase 3d: 3-party Rep3 over BLS12-381 at domain 2^16 ------------
     t0 = time.perf_counter()
@@ -1163,7 +1343,7 @@ def main() -> int:
                 loss[ph][name] += launches[ph] * max(0.0, ms - bms)
             del kernel_fn, plain_fn, out
     widths = {8: W8, 12: W12}
-    fold_modes = {(w.words, m): name + w.tag for w in (W8, W12)
+    fold_modes = {(w.words, m, w.g1.name): name + w.tag for w in (W8, W12)
                   for m, name in ((0, "K4 fold level 0"),
                                   (1, "K4 fold projective"))}
     for ph in PROOFS:
@@ -1192,16 +1372,20 @@ def main() -> int:
     # ---- phase 6: kernel table, card, result -----------------------------
     # a row's launches come from the phase that runs its mode (the BN254
     # Rep3 proof for the 8-word prover modes, the BLS12-381 one for the
-    # 12-word ones); a mode that no proof runs reads that width's proof
+    # 12-word ones); a mode that no proof runs reads that width's proof.
+    # The point kernels count per curve, so Grumpkin's rows read
+    # Grumpkin's launches
     for row in rows.values():
         fn, mode, phase = modes[row["mode"]]
         counted_in = phase or (BN_PHASE if mode[0] == 8 else BLS_PHASE)
-        got = counts_by_phase[counted_in]
-        row["launches"] = got[fn.__qualname__].get(key_str(mode), 0)
+        row["launches"] = counts_by_phase[counted_in][fn.__qualname__].get(
+            key_str(mode), 0)
         row["launches_by_proof"] = {
             ph: counts_by_phase[ph][fn.__qualname__].get(key_str(mode), 0)
             for ph in PROOFS}
         row["reached_by"] = phase or "kernel_check"
+        if row["mode"].endswith(GRUMPKIN_TAG):
+            row["curve"] = "grumpkin"
         row["words"] = mode[0]
         if row["mode"] in cases:
             row["launches_at_shape"] = sizes_by_phase[counted_in][

@@ -232,7 +232,7 @@ extern "C" int cosnarks_msm_fold(int proj_q, const int64_t* qx,
                                  int64_t L, int b3, int group, int threads,
                                  int blocks, const uint32_t* params,
                                  void* stream) {
-  if (b3 <= 0 || K <= 0 || (group != 2 && group != 8) || threads <= 0 ||
+  if (!b3_ok(b3) || K <= 0 || (group != 2 && group != 8) || threads <= 0 ||
       threads > kMaxThreads || threads % 32 != 0 ||
       (proj_q ? smem_bytes<true>(threads / group)
               : smem_bytes<false>(threads / group)) > kMaxDynamicSmem ||

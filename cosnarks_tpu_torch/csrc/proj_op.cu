@@ -2,8 +2,9 @@
 //
 // Replaces _proj_op_call of cosnarks_tpu/ec/pallas_ec.py. op 0: add
 // (12 products), 1: mixed add (11), 2: mixed add with a validity mask
-// (invalid points return P), 3: double (8); 3b comes in as a small integer
-// and runs curve._mul_b3's double/add chain.
+// (invalid points return P), 3: double (8); 3b comes in as a small signed
+// integer and runs curve._mul_b3's double/add chain (point.cuh mul_b3;
+// negative for Grumpkin).
 //
 // What bounds it on the card: by the roofline, bytes (6-9 coordinates of
 // 16 NW bytes against 8-12 field products). In practice latency: the main
@@ -127,7 +128,7 @@ extern "C" int cosnarks_proj_op(int op, const int64_t* x1, const int64_t* y1,
                                 int64_t* oy, int64_t* oz, int64_t total,
                                 int b3, int group, int threads, int blocks,
                                 const uint32_t* params, void* stream) {
-  if (op < 0 || op > 3 || b3 <= 0 ||
+  if (op < 0 || op > 3 || !b3_ok(b3) ||
       (group != 2 && group != 4 && group != 8) ||
       threads <= 0 || threads > kMaxThreads || threads % 32 != 0 ||
       smem_bytes(threads / group) > kMaxDynamicSmem ||

@@ -211,7 +211,7 @@ extern "C" int cosnarks_wreduce(const int64_t* bx, const int64_t* by,
                                 int64_t W, int64_t P, int b3, int group,
                                 int threads, const uint32_t* params,
                                 void* stream) {
-  if (b3 <= 0 || nwin <= 0 || W < 64 || (W & (W - 1)) != 0 || P < 1 ||
+  if (!b3_ok(b3) || nwin <= 0 || W < 64 || (W & (W - 1)) != 0 || P < 1 ||
       P > W || P > kMaxSegments || (P & (P - 1)) != 0 ||
       (group != 2 && group != 4 && group != 8) || threads <= 0 ||
       threads > kMaxThreads || threads % 32 != 0 ||

@@ -3,7 +3,8 @@
 Each is built for two field widths (`_build.WIDTHS`): sixteen 16-bit
 limbs per coordinate, eight 32-bit words inside the kernel (BN254 G1), and
 twenty-four limbs, twelve words (BLS12-381 G1); each wrapper launches the
-build of its curve's width and counts its launches under (words, op). All
+build of its curve's width and counts its launches under (words, op,
+curve). All
 compute with canonical values at every step, so their output limbs equal
 the plain versions' exactly. The field arithmetic they share is
 csrc/field.cuh. K2-K6 give each point (fold lane, segment) a group of
@@ -27,7 +28,8 @@ K2 — complete Jacobian add and double (csrc/jacobian.cu). Replaces
   uniform across its lanes.
 K3 — RCB complete projective add, mixed add (optional validity mask) and
   double (csrc/proj_op.cu). Replaces `_proj_op_call`. 3b = 9 is the same
-  double/add chain as `curve._mul_b3`. The main path launches it mostly on
+  double/add chain as `curve._mul_b3` (negated for Grumpkin's b = -17,
+  `_b3`). The main path launches it mostly on
   1-32 points (the Horner combine, the last fold levels), so it is
   latency-bound like K2. Each point has a group of 2-8 threads
   (`proj_geometry`, by batch size); the block stages the coordinates as K2
@@ -83,9 +85,10 @@ layers.
 
 Dispatch: CPU tensors take the plain versions (the formulas of
 :mod:`.curve` over :class:`PlainFqOps`); CUDA tensors launch or raise.
-Each `*_launch` wrapper counts its launches per width and op in
-`.launches[(words, op)]` (K6, which has one op, per bucket width W) and
-their batch sizes in `.sizes[((words, op), bucket)]` (points, fold lanes
+Each `*_launch` wrapper counts its launches per width, op and curve in
+`.launches[(words, op, curve name)]` (K6, which has one op, per bucket
+width W), so that two curves of one width (BN254 G1 and Grumpkin) count
+apart, and their batch sizes in `.sizes[(key, bucket)]` (points, fold lanes
 L, or windows for K6; see `mont_kernel.count`).
 """
 
@@ -110,10 +113,25 @@ def _plain_ops(spec):
 
 
 def _b3(spec) -> int:
-    b3 = 3 * spec.b
-    if not isinstance(spec.b, int) or not 0 < b3 <= 64:
-        raise ValueError(f"the point kernels take small-b curves, not {spec}")
-    return b3
+    """3b as the RCB kernels take it (csrc/point.cuh mul_b3), the two cases
+    of `curve._mul_b3`'s chain: 3b itself when 0 < 3b <= 64 (BN254 G1 9,
+    BLS12-381 G1 12), and -m when 3b = -m mod p with 0 < m <= 64 (Grumpkin,
+    b = -17: -51), the chain of m negated. Raises for any other b."""
+    b = spec.b
+    if isinstance(b, int):
+        if 0 < 3 * b <= 64:
+            return 3 * b
+        p = spec.ops.field.p
+        m = p - 3 * b % p
+        if m <= 64:
+            return -m
+    raise ValueError(f"the point kernels take curves whose 3b is a small "
+                     f"integer or minus one, not {spec}")
+
+
+def _key(spec, op: int):
+    """A launch counter's key: the build's width, the op and the curve."""
+    return field_words(spec.ops.field), op, spec.name
 
 
 def _flatten(coords, n):
@@ -174,7 +192,7 @@ def jacobian_launch(spec, op: int, coords):
                *[ptr(a) if a is not None else None for a in args],
                *[ptr(o) for o in out], ctypes.c_int64(total),
                field_params(spec.ops.field))
-    count(jacobian_launch, (words, op), total)
+    count(jacobian_launch, _key(spec, op), total)
     return out
 
 
@@ -329,7 +347,7 @@ def proj_launch(spec, op: int, coords, valid=None):
                ctypes.c_int(_b3(spec)), ctypes.c_int(group),
                ctypes.c_int(threads), ctypes.c_int(blocks),
                field_params(spec.ops.field))
-    count(proj_launch, (words, op), total)
+    count(proj_launch, _key(spec, op), total)
     return out
 
 
@@ -422,8 +440,8 @@ def fold_plain(spec, q, flags, K: int, proj_q: bool):
 def fold_launch(spec, q, flags, K: int, proj_q: bool):
     """Launch K4. q: 2 packed (n/2, K, L) coordinate tensors (level 0) or
     3 unpacked (n, K, L) ones (proj_q); flags (K, L) int64. Besides
-    `count`'s buckets, `.shapes[((words, proj_q), L, K)]` counts launches
-    by exact shape."""
+    `count`'s buckets, `.shapes[((words, proj_q, curve), L, K)]` counts
+    launches by exact shape."""
     n = spec.ops.field.nlimbs
     device = flags.device
     L = flags.shape[1]
@@ -456,7 +474,7 @@ def fold_launch(spec, q, flags, K: int, proj_q: bool):
                ctypes.c_int(_b3(spec)), ctypes.c_int(group),
                ctypes.c_int(threads), ctypes.c_int(blocks),
                field_params(spec.ops.field))
-    count(fold_launch, (words, int(proj_q)), L, shape=(L, K))
+    count(fold_launch, _key(spec, int(proj_q)), L, shape=(L, K))
     return tuple(bufs), tuple(lanes[:3]), tuple(lanes[3:])
 
 
@@ -583,7 +601,7 @@ def madd_launch(spec, coords, valid=None):
                *[ptr(o) for o in out], ctypes.c_int64(total),
                ctypes.c_int(group), ctypes.c_int(threads),
                ctypes.c_int(blocks), field_params(spec.ops.field))
-    count(madd_launch, (words, mode), total)
+    count(madd_launch, _key(spec, mode), total)
     return out
 
 
@@ -715,7 +733,7 @@ def wreduce_launch(spec, buckets):
                ctypes.c_int64(W), ctypes.c_int64(P), ctypes.c_int(_b3(spec)),
                ctypes.c_int(group), ctypes.c_int(threads),
                field_params(spec.ops.field))
-    count(wreduce_launch, (words, W), nwin)
+    count(wreduce_launch, _key(spec, W), nwin)
     return tuple(out)
 
 

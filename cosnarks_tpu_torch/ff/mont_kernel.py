@@ -64,7 +64,8 @@ def count(wrapper, mode: int, total: int, shape=None):
     launches' batch sizes (`total`: products, points, fold lanes or
     windows), `shapes` the exact launch shapes of a wrapper that files
     them. The kernel wrappers pass mode = (words, op), so the two widths
-    of a kernel count apart."""
+    of a kernel count apart; the point kernels (ec_kernels) add the curve,
+    so that two curves of one width count apart too."""
     with _count_lock:
         wrapper.launches[mode] = wrapper.launches.get(mode, 0) + 1
         key = (mode, size_bucket(total))
@@ -72,6 +73,12 @@ def count(wrapper, mode: int, total: int, shape=None):
         if shape is not None:
             key = (mode,) + tuple(shape)
             wrapper.shapes[key] = wrapper.shapes.get(key, 0) + 1
+
+
+def key_str(mode) -> str:
+    """A `count` mode, (words, op) or (words, op, curve), as a JSON key:
+    "8w:0", "8w:0:bn254_g1"."""
+    return f"{mode[0]}w:" + ":".join(str(k) for k in mode[1:])
 
 
 def field_words(field: Field) -> int:

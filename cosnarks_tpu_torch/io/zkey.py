@@ -10,12 +10,14 @@ sections map straight into limb arrays.
 from __future__ import annotations
 
 import dataclasses
+import struct
 
 import numpy as np
 
 from ..ff.bigint import limbs_to_int
 from ..ff.spec import BLS12_381_FQ, BLS12_381_FR, BN254_FQ, BN254_FR, Field
-from .binformat import Container, le_bytes_to_limbs, read_u32
+from .binformat import (Container, le_bytes_to_limbs, limbs_to_le_bytes,
+                        read_u32, write_container)
 
 GROTH16 = 1
 PLONK = 2
@@ -148,6 +150,31 @@ def parse_groth16_zkey(data: bytes) -> Groth16Zkey:
 def load_groth16_zkey(path) -> Groth16Zkey:
     with open(path, "rb") as f:
         return parse_groth16_zkey(f.read())
+
+
+def write_groth16_zkey(zk: Groth16Zkey) -> bytes:
+    """A Groth16Zkey's arrays as a snarkjs-layout zkey file, the sections
+    parse_groth16_zkey reads (the port's own writer: a zkey made by
+    groth16.setup can go to the CLI, which reads zkeys from files)."""
+    def raw(a):
+        return limbs_to_le_bytes(a.reshape(-1, a.shape[-1]))
+
+    header = b"".join([
+        struct.pack("<I", 2 * zk.fq.nlimbs), raw(zk.fq.p_limbs[None]),
+        struct.pack("<I", 2 * zk.fr.nlimbs), raw(zk.fr.p_limbs[None]),
+        struct.pack("<III", zk.n_vars, zk.n_public, zk.domain_size),
+        *(raw(getattr(zk, k)) for k in ("alpha_g1", "beta_g1", "beta_g2",
+                                         "gamma_g2", "delta_g1",
+                                         "delta_g2"))])
+    coeffs = struct.pack("<I", len(zk.coeff_row)) + b"".join(
+        struct.pack("<III", m, r, c) + raw(v[None])
+        for m, r, c, v in zip(zk.coeff_matrix, zk.coeff_row, zk.coeff_col,
+                              zk.coeff_val))
+    sections = [(1, struct.pack("<I", GROTH16)), (2, header), (3, raw(zk.ic)),
+                (4, coeffs)]
+    sections += [(5 + i, raw(getattr(zk, k))) for i, k in enumerate(
+        ("a_query", "b_g1_query", "b_g2_query", "c_query", "h_query"))]
+    return write_container(b"zkey", 1, sections)
 
 
 # -- host-form helpers (for the verifier / vk export) -----------------------

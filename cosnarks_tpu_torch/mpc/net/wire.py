@@ -12,7 +12,8 @@ executes it, and enforces a maximum frame length (the reference's
 max_frame_length, mpc-net/src/config.rs:171).
 
 A torch tensor is encoded as its CPU numpy array, so the same values give
-the same bytes as in the JAX package; decoding gives numpy arrays.
+the same bytes as in the JAX package; decoding gives numpy arrays, and
+`tensors` turns them into tensors on a network's device.
 """
 
 from __future__ import annotations
@@ -173,6 +174,21 @@ def encode(obj, max_frame_length: int | None = None) -> bytes:
             f"frame of {len(data)} bytes exceeds max_frame_length={cap}"
         )
     return data
+
+
+def tensors(obj, device: torch.device):
+    """A decoded message with every numpy array in it, inside lists, tuples
+    and dicts too, turned into a tensor of the same dtype on `device`;
+    ints, bytes, strings, bools and None stay Python objects. The socket
+    transports hand messages to the protocols this way, as LocalNetwork
+    hands over the tensors that were sent."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(obj).to(device)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(tensors(x, device) for x in obj)
+    if isinstance(obj, dict):
+        return {k: tensors(v, device) for k, v in obj.items()}
+    return obj
 
 
 def decode(data: bytes, max_frame_length: int | None = None):

@@ -1,7 +1,10 @@
 """The port imports neither JAX nor the JAX package: every module of
 cosnarks_tpu_torch, chip_smoke.py, the port's PLONK zkey fixture
-(scripts/torch_plonk_fixture.py) and its VM timing script
-(scripts/torch_vm_turns.py), checked on its syntax tree."""
+(scripts/torch_plonk_fixture.py), its VM timing script
+(scripts/torch_vm_turns.py), its CLI cold-start script
+(scripts/torch_cli_cold_start.py) and the CLI process runner they share
+with chip_smoke.py (scripts/torch_cli_procs.py), checked on its syntax
+tree."""
 
 import ast
 from pathlib import Path
@@ -12,7 +15,9 @@ ROOT = Path(__file__).resolve().parent.parent
 PACKAGE = sorted((ROOT / "cosnarks_tpu_torch").rglob("*.py"))
 FILES = PACKAGE + [ROOT / "chip_smoke.py",
                    ROOT / "scripts" / "torch_plonk_fixture.py",
-                   ROOT / "scripts" / "torch_vm_turns.py"]
+                   ROOT / "scripts" / "torch_vm_turns.py",
+                   ROOT / "scripts" / "torch_cli_cold_start.py",
+                   ROOT / "scripts" / "torch_cli_procs.py"]
 
 
 def _forbidden(name: str) -> bool:
@@ -44,5 +49,8 @@ def test_port_package_is_complete():
                    "io/shared.py", "mpc/net/wire.py", "plonk/prove.py",
                    "plonk/verify.py", "vm/interp.py", "vm/mpc_run.py",
                    "vm/rep3_batched.py", "mpc/rep3_scalar.py", "mpc/yao.py",
-                   "mpc/rep3_ring.py", "gadgets/poseidon2.py"):
+                   "mpc/rep3_ring.py", "gadgets/poseidon2.py",
+                   "utils/timing.py", "mpc/net/config.py", "mpc/net/tcp.py",
+                   "mpc/net/tls.py", "mpc/net/tcp_session.py",
+                   "mpc/net/udp.py", "cli.py", "__main__.py"):
         assert module in names

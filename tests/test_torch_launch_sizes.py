@@ -156,9 +156,9 @@ def test_k5_k6_launch_their_width_and_count_under_it(kernel, monkeypatch):
     """K5 and K6 are among the 12-word builds; on a BLS12-381 G1 field their
     launch wrappers load the 12-word library, launch at the 12-word
     geometry (`madd_geometry`, `wreduce_geometry`) and count the launch
-    under (12, op) (K6: (12, W)). The card is replaced by a recorder: the
-    wrappers' device checks pass CPU tensors and the launch records its
-    entry point and arguments."""
+    under (12, op, curve) (K6: (12, W, curve)). The card is replaced by a
+    recorder: the wrappers' device checks pass CPU tensors and the launch
+    records its entry point and arguments."""
     assert {("jacobian_madd", 12), ("wreduce", 12)} <= set(_build.builds())
     loaded, launched = [], []
 
@@ -182,7 +182,7 @@ def test_k5_k6_launch_their_width_and_count_under_it(kernel, monkeypatch):
         ek.wreduce_launch(BLS12_381_G1,
                           [torch.zeros((2, W, 24), dtype=torch.int64)] * 3)
         assert loaded == [("wreduce", 12)]
-        assert ek.wreduce_launch.launches == {(12, W): 1}
+        assert ek.wreduce_launch.launches == {(12, W, "bls12_381_g1"): 1}
         fn, args = launched[0]
         assert fn == "K6"
         assert [a.value for a in args[7:13]] == [2, W, P, 3 * 4, group,
@@ -193,7 +193,7 @@ def test_k5_k6_launch_their_width_and_count_under_it(kernel, monkeypatch):
         ek.madd_launch(BLS12_381_G1, [x] * 5, valid)
         mode = ek.MADD_MASKED if valid is not None else ek.MADD
         assert loaded == [("jacobian_madd", 12)]
-        assert ek.madd_launch.launches == {(12, mode): 1}
+        assert ek.madd_launch.launches == {(12, mode, "bls12_381_g1"): 1}
         fn, args = launched[0]
         assert fn == "K5" and args[0].value == mode
         assert [a.value for a in args[10:14]] == [4, *ek.madd_geometry(4, 12)]

@@ -5,7 +5,8 @@ csrc/rcb_group.cuh runs on a group of threads per point; here it is run
 with plain ops and held limb for limb against the JAX package's
 `curve.proj_add`, `proj_madd` (masked and not) and `proj_double` on seeded
 BN254 and BLS12-381 G1 points (the 8- and 12-word builds run the same
-schedule) with identity, P = Q and P = -Q lanes. `proj_geometry` /
+schedule) and on Grumpkin points (3b = -51: the kernels' negated chain)
+with identity, P = Q and P = -Q lanes. `proj_geometry` /
 `fold_geometry` are the launch geometries of csrc/proj_op.cu and
 csrc/msm_fold.cu, and must cover every point or fold lane exactly once
 with whole groups inside one warp."""
@@ -29,7 +30,8 @@ from cosnarks_tpu_torch.ff.bigint import ints_to_limbs
 
 JSPEC, TSPEC = jcurves.BN254_G1, curves.BN254_G1
 CURVES = {"bn254": (jcurves.BN254_G1, curves.BN254_G1),
-          "bls12_381": (jcurves.BLS12_381_G1, curves.BLS12_381_G1)}
+          "bls12_381": (jcurves.BLS12_381_G1, curves.BLS12_381_G1),
+          "grumpkin": (jcurves.GRUMPKIN, curves.GRUMPKIN)}
 MAX_THREADS = 256  # csrc/proj_op.cu and csrc/msm_fold.cu kMaxThreads
 PROJ_GROUPS = (2, 4, 8)  # the group sizes csrc/proj_op.cu is built for
 FOLD_GROUPS = (2, 8)  # and csrc/msm_fold.cu
@@ -60,7 +62,10 @@ def _names(expr):
 
 
 def _times(o, x, c: int):
-    """c * x for a small positive c, by doubling and adding."""
+    """c * x for a small c, by doubling and adding (a negative c: -c * x,
+    negated, as csrc/point.cuh's mul_b3 takes Grumpkin's 3b)."""
+    if c < 0:
+        return o.neg(_times(o, x, -c))
     acc = x
     for bit in bin(c)[3:]:
         acc = o.double(acc)
@@ -72,7 +77,7 @@ def _times(o, x, c: int):
 def _run_schedule(op, inputs, tspec=TSPEC):
     """The schedule of `op` with plain ops: returns (X3, Y3, Z3)."""
     o = PlainFqOps(tspec.ops.field)
-    b3 = 3 * tspec.b
+    b3 = ek._b3(tspec)  # the kernels' 3b
     sched = ek.RCB_SCHEDULE[op]
     env = dict(zip(sched["in"], inputs))
 
@@ -170,7 +175,7 @@ def _inputs(op, seed, jspec, fq):
 
 @pytest.mark.parametrize("op,curve", [
     pytest.param(op, curve, id=op if curve == "bn254" else f"{op}-{curve}")
-    for curve in ("bn254", "bls12_381")
+    for curve in ("bn254", "bls12_381", "grumpkin")
     for op in ("add", "madd", "madd masked", "double")])
 def test_schedule_matches_jax(op, curve):
     """The schedule, run with plain ops, equals the JAX package's RCB
