@@ -26,8 +26,8 @@ Phases, one JSON line each; any failure exits non-zero:
      mask), and show that a wrapper raises on a bad CUDA input instead of
      falling back, K6 on a bucket width that is not a power of two;
   3. the main path: a domain-2^16 synthetic zkey, then the 3-party Rep3
-     Groth16 prover over run_parties, twice; every party returns the same
-     proof, it verifies, and every kernel launched during the warm prove;
+     Groth16 prover over run_parties, once; every party returns the same
+     proof, it verifies, and every kernel launched during the prove;
      the phase line carries the launch-size histogram of each prover mode
      and K4's launches by exact (L, K);
   3b. the 3-party Shamir (n = 3, t = 1) Groth16 prover on the same zkey,
@@ -52,10 +52,10 @@ Phases, one JSON line each; any failure exits non-zero:
      be the zkey's and the three proof files byte-identical; the line
      carries each stage's seconds, each party's phase timings and bytes a
      peer, beside phase 3c's in-process VM and prove seconds;
-  3d. the same Rep3 prover over BLS12-381 at domain 2^16, twice: a
+  3d. the same Rep3 prover over BLS12-381 at domain 2^16, once: a
      BLS12-381 synthetic zkey, every party the same proof, verified by
      verify_bls12_381, every 12-word K1-K4 prover mode and K1 at 8 words
-     (Fr) launched during the warm prove;
+     (Fr) launched during the prove;
   3e. co-PLONK through the port's artifact IO: a domain-2^16 BN254 PLONK
      zkey of scripts/torch_plonk_fixture.py (squaring chain, two public
      inputs, four snarkjs additions) read by parse_plonk_zkey, each party's
@@ -68,6 +68,21 @@ Phases, one JSON line each; any failure exits non-zero:
      (n = 3, t = 1) PLONK prover once, the same checks; then one Shamir
      pair refill of the size round 3 burns (18 x 4n pairs), timed, with
      its peak device memory;
+  3g. rep3_noir_honk, coNoir: a synthetic Noir program of 2^16 rows
+     (noir/synthetic.py: AssertZero chains, Poseidon2, 32-bit RANGE,
+     AND / XOR, ROM reads) written as a real artifact file and read back;
+     its private input Rep3-shared; the CRS made on the card by
+     local_crs(2^16, device=cuda) (K2); the 3-party co-ACVM and MPC
+     UltraBuilder (host Python, taking turns), each party's proving key
+     and vk (commitments by msm()), split_builder_pk, then co_prove
+     (Keccak) twice; the plain pipeline proves the same program in both
+     flavors on the card and verifies on the host. Every party's proof is
+     the same and equals the plain Keccak proof word for word, the opened
+     witness equals the plain one, a changed word is refused, one
+     commitment of the warm co-proof equals the host Pippenger on the
+     opened coefficients, and K1, K3 and K4 launched in the warm proof;
+     the line carries each stage's seconds, the co-prover's parts a
+     party, rounds a party, launches and peak device memory;
   4. a 2^20-point G1 MSM at c = 15 over points [k_i]G made on the card,
      checked against the host's [sum s_i k_i]G;
   4b. the same MSM through the other split, _host_horner(_pippenger_wsums):
@@ -78,12 +93,12 @@ Phases, one JSON line each; any failure exits non-zero:
      255-bit scalar), K4 and K6 at 12 words, both checked against the
      host, then three pairs taking turns;
   5. main_path_loss: K1-K3's prover modes timed (and checked) at every
-     launch-size bucket of the six proofs, K4's at every (L, K) they
+     launch-size bucket of the seven proofs, K4's at every (L, K) they
      launched, each at its width, and each mode's loss per proof, sum of
      launches x (ms - bound);
   6. the kernel table (every mode of K1-K6 at every checked shape and
      width, each with its launches, the phase that counted them and its
-     main-path loss, and its launches and loss in each of the six
+     main-path loss, and its launches and loss in each of the seven
      proofs);
      then the card's name and power limit; then
      {"ok": true, "device": {...}} as the last line.
@@ -108,8 +123,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 BN_PHASE, BLS_PHASE = "rep3_groth16", "bls12_381_rep3_groth16"
 CIRCOM_PHASE = "rep3_circom_groth16"
+NOIR_PHASE = "rep3_noir_honk"
 PROOFS = (BN_PHASE, "shamir_groth16", CIRCOM_PHASE, BLS_PHASE, "rep3_plonk",
-          "shamir_plonk")
+          "shamir_plonk", NOIR_PHASE)
 # K6's window shapes (windows, buckets, name) at each width: 2^16 points at
 # c = 13, 2^20 at c = 15, and at 12 words 2^20 at c = 16 (phase 4c)
 K6_SHAPES = {8: ((20, 4096, "2^16/c=13"), (17, 16384, "2^20/c=15")),
@@ -335,6 +351,21 @@ def main() -> int:
     from cosnarks_tpu_torch.plonk import drivers as plonk_drivers
     from cosnarks_tpu_torch.plonk import prove as plonk_prove
     from cosnarks_tpu_torch.vm import lang, mpc_run
+    from cosnarks_tpu_torch.vm.interp import PlainDriver
+    from cosnarks_tpu_torch.vm.rep3_driver import Rep3Driver
+    from cosnarks_tpu_torch.mpc.rep3_scalar import HostRng, Rep3Scalar
+    from cosnarks_tpu_torch.noir import acir as nacir
+    from cosnarks_tpu_torch.noir import solver as nsolver
+    from cosnarks_tpu_torch.noir import synthetic
+    from cosnarks_tpu_torch.honk import builder as hbuilder
+    from cosnarks_tpu_torch.honk import co_prover as hco
+    from cosnarks_tpu_torch.honk import crs as hcrs
+    from cosnarks_tpu_torch.honk import polyops as hpolyops
+    from cosnarks_tpu_torch.honk import prover as hprover
+    from cosnarks_tpu_torch.honk import proving_key as hpk
+    from cosnarks_tpu_torch.honk import transcript as htranscript
+    from cosnarks_tpu_torch.honk import verifier as hverifier
+    from cosnarks_tpu_torch.honk.co_driver import Rep3HonkDriver
     sys.path.insert(0, os.path.join(ROOT, "scripts"))
     from torch_plonk_fixture import rep3_plonk_case
 
@@ -919,15 +950,12 @@ def main() -> int:
             raise AssertionError("proof does not verify")
         return res, time.perf_counter() - t0
 
-    res, t_first = run_prove(rep3_party, zkey, w)
     clear_counts()
-    res, t_warm = run_prove(rep3_party, zkey, w)
+    res, t_prove = run_prove(rep3_party, zkey, w)
     launched = record("rep3_groth16")
     require_launched("rep3_groth16", prover_modes)
     emit({"phase": "rep3_groth16", "domain": zkey.domain_size,
-          "zkey_seconds": t_zkey, "first_prove_s": t_first,
-          "warm_prove_s": t_warm,
-          "verified": True,
+          "zkey_seconds": t_zkey, "prove_s": t_prove, "verified": True,
           "phase_seconds_by_party": [r[1] for r in res], **launched})
     del shares, res
 
@@ -1072,15 +1100,13 @@ def main() -> int:
         state = rep3.Rep3State.setup(net, bytes([net.id + 0x21]) * 32)
         return drivers.Rep3Driver(net, state), b_shares[net.id]
 
-    res, t_first = run_prove(bls_party, bzkey, bw, verify_bls12_381)
     clear_counts()
-    res, t_warm = run_prove(bls_party, bzkey, bw, verify_bls12_381)
+    res, t_prove = run_prove(bls_party, bzkey, bw, verify_bls12_381)
     launched = record(BLS_PHASE)
     require_launched(BLS_PHASE, bls_modes)
     emit({"phase": BLS_PHASE, "curve": "bls12_381",
           "domain": bzkey.domain_size, "zkey_seconds": t_bzkey,
-          "first_prove_s": t_first, "warm_prove_s": t_warm,
-          "verified": True, "parties_agree": True,
+          "prove_s": t_prove, "verified": True, "parties_agree": True,
           "phase_seconds_by_party": [r[1] for r in res], **launched})
     del bzkey, b_shares, res
     torch.cuda.empty_cache()
@@ -1163,6 +1189,219 @@ def main() -> int:
                                torch.cuda.max_memory_allocated()},
           **launched})
     del case, pzk, res
+    torch.cuda.empty_cache()
+
+    # ---- phase 3g: coNoir: Noir program -> Rep3 witness -> co-UltraHonk ---
+    # A synthetic Noir artifact of 2^16 rows written to a file and read
+    # back; its input shared; the 3-party co-ACVM and MPC UltraBuilder
+    # (host Python, taking turns); each party's proving key (precomputed
+    # polynomials public, witness shared) and vk on the card; co_prove
+    # (Keccak) twice, barriers splitting the launch counts into the first
+    # and the warm proof. The CRS is made on the card by local_crs (K2).
+    # The plain pipeline proves the same witness in both flavors.
+    fr_p = hpolyops.R
+    program = synthetic.SMOKE_PROGRAM
+    stage_s = {}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "synthetic.json")
+        nacir.dump_artifact(path, *synthetic.synthetic_program(**program))
+        artifact_bytes = os.path.getsize(path)
+        art = nacir.load_artifact(path)
+    af = hbuilder.AcirFormat.from_function(art.functions[0])
+    n_wit = af.max_witness_index + 1
+    noir_inputs = synthetic.synthetic_inputs(program["n_inputs"], 0x401)
+    share_rand = random.Random(0x402).randbytes
+    in_shares = [Rep3Scalar.share(v, fr_p, rand=share_rand)
+                 for v in noir_inputs]
+    stage_s["artifact"] = time.perf_counter() - t0
+
+    clear_counts()
+    t0 = time.perf_counter()
+    hcrs_dev = hcrs.local_crs(1 << 16, device=dev)
+    torch.cuda.synchronize()
+    stage_s["crs"] = time.perf_counter() - t0
+    crs_launches = {k: sum(v.values()) for k, v in read_counts().items()}
+    if not crs_launches[ek.jacobian_launch.__qualname__]:
+        raise AssertionError(f"local_crs launched no K2: {crs_launches}")
+
+    keccak = htranscript.HASHERS["keccak"]
+    noir_stages = {}
+    spied = {}
+    spy_on = [False]
+    commit_open = Rep3HonkDriver.commit_open
+
+    def spy(self, coeffs, crs):
+        out = commit_open(self, coeffs, crs)
+        k = coeffs.a.shape[0]
+        if spy_on[0] and 256 <= k <= 1024 and self.id not in spied:
+            spied[self.id] = (coeffs.a.cpu(), out)
+        return out
+
+    def noir_stage(name):
+        def action():
+            torch.cuda.synchronize()
+            noir_stages[name] = (time.perf_counter(), read_counts())
+            if name == "first":
+                clear_counts()
+                torch.cuda.reset_peak_memory_stats()
+                spy_on[0] = True
+            if name == "warm":
+                noir_stages["peak"] = torch.cuda.max_memory_allocated()
+                spy_on[0] = False
+        return action
+
+    bar_first = threading.Barrier(3, action=noir_stage("first"), timeout=900)
+    bar_warm = threading.Barrier(3, action=noir_stage("warm"), timeout=900)
+
+    def noir_party(net):
+        i = net.id
+        keys = [bytes([0x81 + j]) * 32 for j in range(3)]
+        vm = Rep3Driver(Rep3Scalar(net, HostRng(keys[i], keys[(i + 1) % 3]),
+                                   fr_p), hpolyops.FR)
+        calls = count_calls(net, ("reshare_backward", "broadcast"))
+        out = {}
+        t = time.perf_counter()
+        wmap = nsolver.solve_program(art, vm, fr_p,
+                                     [sh[i] for sh in in_shares])
+        wit = [vm.norm(wmap.get(j, 0)) for j in range(n_wit)]
+        out["acvm_s"] = time.perf_counter() - t
+        out["acvm_rounds"] = dict(calls)
+        opened = vm.pr.open_many([vm.to_share(v) for v in wit])
+        t = time.perf_counter()
+        b = hbuilder.UltraBuilder.create_circuit(af, wit, driver=vm)
+        out["build_s"] = time.perf_counter() - t
+        t = time.perf_counter()
+        pk = hpk.create_proving_key(b)
+        out["proving_key_s"] = time.perf_counter() - t
+        out["mpc_rounds"] = {k: calls[k] - out["acvm_rounds"][k]
+                             for k in calls}
+        del net.reshare_backward, net.broadcast
+        t = time.perf_counter()
+        pk = pk.to_device(dev, hpk.PRECOMPUTED)
+        vk = hpk.create_vk(pk, hcrs_dev)
+        out["vk_s"] = time.perf_counter() - t
+        drv = Rep3HonkDriver(net, rep3.Rep3State.setup(
+            net, bytes([i + 0x91]) * 32))
+        t = time.perf_counter()
+        pk_pub, shared = hco.split_builder_pk(pk, drv)
+        shared = hco.shared_witness_to_device(shared, dev)
+        torch.cuda.synchronize()
+        out["to_device_s"] = time.perf_counter() - t
+        proofs, timings = [], []
+        for bar in (bar_first, bar_warm):
+            tim = {}
+            t = time.perf_counter()
+            proofs.append(hco.co_prove(pk_pub, shared, vk, hcrs_dev, keccak,
+                                       drv, timings=tim))
+            tim["total"] = time.perf_counter() - t
+            timings.append(tim)
+            with net.turn.blocked():
+                bar.wait()
+        out["prove_rounds"] = drv.rounds // 2
+        out["prove_s"] = timings
+        return out, opened, vk, proofs, pk_pub.circuit_size
+
+    Rep3HonkDriver.commit_open = spy
+    try:
+        clear_counts()
+        t0 = time.perf_counter()
+        nres = run_parties([noir_party] * 3)
+    finally:
+        Rep3HonkDriver.commit_open = commit_open
+    noir_wall = time.perf_counter() - t0
+    launched = record(NOIR_PHASE)
+    t_first_end = noir_stages["first"][0]
+    t_warm = noir_stages["warm"][0] - t_first_end
+    require_launched(NOIR_PHASE, ["K1 mont_mul", "K3 proj add",
+                                  "K4 fold level 0"])
+    co_proof = nres[0][3][1]
+    if not all(r[3][0] == co_proof and r[3][1] == co_proof for r in nres):
+        raise AssertionError("coNoir: parties' proofs differ")
+    if nres[0][4] != 1 << 16:
+        raise AssertionError(f"coNoir: circuit size {nres[0][4]}")
+
+    # the plain pipeline on the same witness, both flavors on the card
+    t0 = time.perf_counter()
+    pw = nsolver.solve_program(art, PlainDriver(hpolyops.FR), fr_p,
+                               noir_inputs)
+    plain_wit = [int(pw.get(j, 0)) for j in range(n_wit)]
+    if [int(v) for v in nres[0][1]] != plain_wit:
+        raise AssertionError("coNoir: opened witness != plain witness")
+    plain_pk = hpk.create_proving_key(
+        hbuilder.UltraBuilder.create_circuit(af, plain_wit)).to_device(dev)
+    plain_vk = hpk.create_vk(plain_pk, hcrs_dev)
+    t_plain_key = time.perf_counter() - t0
+    if plain_vk.commitments != nres[0][2].commitments:
+        raise AssertionError("coNoir: MPC vk != plain vk")
+    plain_s, plain_timings, verify_s = {}, {}, {}
+    for flavor in ("keccak", "poseidon2"):
+        hasher = htranscript.HASHERS[flavor]
+        plain_timings[flavor] = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        proof = hprover.prove(plain_pk, plain_vk, hcrs_dev, hasher,
+                              timings=plain_timings[flavor])
+        torch.cuda.synchronize()
+        plain_s[flavor] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if not hverifier.verify(proof[0], proof[1], plain_vk,
+                                hcrs_dev.g2_x, hasher):
+            raise AssertionError(f"coNoir: plain {flavor} proof refused")
+        verify_s[flavor] = time.perf_counter() - t0
+        if flavor == "keccak":
+            if proof != co_proof:
+                raise AssertionError("coNoir: co-proof != plain proof")
+            bad = list(proof[0])
+            bad[len(bad) // 2] = (bad[len(bad) // 2] + 1) % fr_p
+            if hverifier.verify(bad, proof[1], plain_vk, hcrs_dev.g2_x,
+                                hasher):
+                raise AssertionError("coNoir: a changed proof verified")
+    # one commitment of the warm co-proof against the host Pippenger on the
+    # opened coefficients (outside the phase's timings)
+    t0 = time.perf_counter()
+    coeffs = [sum(v) % fr_p for v in zip(*[
+        hpolyops.decode(spied[j][0]) for j in range(3)])]
+    idx = [j for j, c in enumerate(coeffs) if c]
+    host_pt = hpolyops._host_pippenger(
+        [hcrs_dev.monomials[j] for j in idx], [coeffs[j] for j in idx])
+    if not (host_pt == spied[0][1] == spied[1][1] == spied[2][1]):
+        raise AssertionError("coNoir: commitment != host Pippenger")
+    t_commit_check = time.perf_counter() - t0
+    emit({"phase": NOIR_PHASE, "rows": nres[0][4],
+          "program": program, "artifact_bytes": artifact_bytes,
+          "opcodes": len(art.functions[0].opcodes),
+          "stage_seconds": {**stage_s,
+                            "acvm_by_party": [r[0]["acvm_s"] for r in nres],
+                            "build_by_party": [r[0]["build_s"]
+                                               for r in nres],
+                            "proving_key_by_party": [r[0]["proving_key_s"]
+                                                     for r in nres],
+                            "vk_by_party": [r[0]["vk_s"] for r in nres],
+                            "to_device_by_party": [r[0]["to_device_s"]
+                                                   for r in nres]},
+          "co_prove_seconds_by_party": [r[0]["prove_s"] for r in nres],
+          "warm_co_prove_s": t_warm, "wall_s": noir_wall,
+          "plain_key_s": t_plain_key, "plain_prove_s": plain_s,
+          "plain_prove_parts": plain_timings, "verify_s": verify_s,
+          "rounds_by_party": [{"acvm": r[0]["acvm_rounds"],
+                               "mpc_build": r[0]["mpc_rounds"],
+                               "co_prove": r[0]["prove_rounds"]}
+                              for r in nres],
+          "crs_launches": crs_launches,
+          "first_proof_launches": {
+              k: sum(v.values())
+              for k, v in noir_stages["first"][1].items()},
+          "peak_device_bytes_warm": noir_stages["peak"],
+          "proof_words": len(co_proof[0]), "public_inputs": co_proof[1],
+          "parties_agree": True, "equals_plain_keccak": True,
+          "witness_matches_plain": True, "verified": True,
+          "changed_word_refused": True,
+          "commitment_check": {"coefficients": len(coeffs),
+                               "equals_host_pippenger": True,
+                               "seconds": t_commit_check},
+          **launched})
+    del nres, plain_pk, hcrs_dev, art, af
     torch.cuda.empty_cache()
 
     # ---- phase 4: bench.py's shape: 2^20-point G1 MSM at c = 15 ----------
@@ -1276,10 +1515,9 @@ def main() -> int:
 
     # ---- phase 5: the proofs' loss, launch size by launch size -----------
     # Each K1-K3 prover mode, at each width, is timed at every size bucket
-    # at which one of the six proofs (Groth16: the warm Rep3, the Shamir,
+    # at which one of the seven proofs (Groth16: the Rep3, the Shamir,
     # the co-circom and the BLS12-381 one; PLONK: the warm Rep3 and the
-    # Shamir one)
-    # launched it
+    # Shamir one; UltraHonk: the warm coNoir co-proof) launched it
     # (random canonical operands, ordinary points), and each K4 mode at
     # every exact (L, K) they launched (random operands, phase 2's flags),
     # held against its plain version, and its loss per proof summed as

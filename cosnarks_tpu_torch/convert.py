@@ -59,3 +59,43 @@ def plonk_zkey_from_numpy(zkey) -> PlonkZkey:
     """An object with the PlonkZkey fields (the JAX package's parsed PLONK
     zkey) -> the port's PlonkZkey with the port's own Field objects."""
     return _zkey_from_numpy(PlonkZkey, zkey)
+
+
+def honk_proving_key_from_numpy(pk, device=None):
+    """An object with the UltraHonk ProvingKey fields (the JAX package's
+    proving key: its polynomials lists or numpy arrays of python ints, or
+    (n, 16) uint32 Montgomery limb arrays) -> the port's ProvingKey with
+    every polynomial an (n, 16) int64 Montgomery limb tensor on `device`."""
+    import dataclasses
+
+    from .honk import polyops
+    from .honk.proving_key import ActiveRegionData, ProvingKey
+
+    dev = resolve_device(device)
+    polys = {}
+    for name, col in pk.polynomials.items():
+        arr = np.asarray(col)
+        if arr.ndim == 2:
+            polys[name] = limbs_from_numpy(arr, dev)
+        else:
+            polys[name] = polyops.encode([int(v) for v in col], dev)
+    kwargs = {f.name: _copy(getattr(pk, f.name))
+              for f in dataclasses.fields(ProvingKey)}
+    kwargs["polynomials"] = polys
+    kwargs["public_inputs"] = [int(v) for v in pk.public_inputs]
+    active = pk.active_region_data
+    kwargs["active_region_data"] = ActiveRegionData(
+        [tuple(r) for r in active.ranges], list(active.idxs))
+    return ProvingKey(**kwargs)
+
+
+def honk_crs_from_numpy(crs, device=None):
+    """An object with the UltraHonk Crs fields (host affine monomials and
+    g2_x) -> the port's Crs; with `device`, its monomials also held there
+    as Jacobian tensors (commitments then run msm())."""
+    from .honk.crs import Crs
+
+    out = Crs([None if pt is None else (int(pt[0]), int(pt[1]))
+               for pt in crs.monomials],
+              tuple(tuple(int(c) for c in xy) for xy in crs.g2_x))
+    return out if device is None else out.to(device)

@@ -37,15 +37,26 @@ def limbs_to_int(limbs) -> int:
 
 
 def ints_to_limbs(xs, nlimbs: int) -> np.ndarray:
-    """Vectorized ``int_to_limbs`` over a list of python ints -> (len, nlimbs)."""
-    out = np.empty((len(xs), nlimbs), dtype=np.uint32)
-    for row, x in enumerate(xs):
-        out[row] = int_to_limbs(x, nlimbs)
-    return out
+    """Vectorized ``int_to_limbs`` over a list of python ints -> (len, nlimbs),
+    through one little-endian byte string (a Python loop over limbs costs
+    seconds at proving-key sizes)."""
+    nbytes = nlimbs * LIMB_BITS // 8
+    try:
+        buf = b"".join(int(x).to_bytes(nbytes, "little") for x in xs)
+    except OverflowError as exc:
+        raise ValueError(f"value does not fit in {nlimbs} limbs or is "
+                         "negative") from exc
+    return (np.frombuffer(buf, dtype="<u2").reshape(len(xs), nlimbs)
+            .astype(np.uint32))
 
 
 def limbs_to_ints(arr) -> list[int]:
     """(..., nlimbs) limb array -> flat list of python ints (row-major)."""
     arr = np.asarray(arr)
     flat = arr.reshape(-1, arr.shape[-1])
-    return [limbs_to_int(row) for row in flat]
+    if flat.size and (flat.min() < 0 or flat.max() > LIMB_MASK):
+        return [limbs_to_int(row) for row in flat]
+    raw = flat.astype("<u2").tobytes()
+    step = 2 * flat.shape[-1]
+    return [int.from_bytes(raw[i:i + step], "little")
+            for i in range(0, len(raw), step)]

@@ -45,8 +45,10 @@ def _host_consts(field: Field) -> dict:
     fold = ints_to_limbs(
         [(pow(2, LIMB_BITS * k, field.p) * rinv) % field.p
          for k in range(2 * n - 1)], n).astype(np.int64)
-    # fold2[i, l] = fold[i + l]: the outer product a_i b_l folds in one go
+    # fold2[i, l] = fold[i + l], so the outer product a_i b_l folds in one
+    # go; kept as its low and high bytes in float64, two exact matmuls
     idx = np.arange(n)[:, None] + np.arange(n)[None, :]
+    fold2 = fold[idx].reshape(n * n, n)
     qweights = np.array(
         [float(1 << (LIMB_BITS * j)) / float(field.p) for j in range(n)],
         dtype=np.float64)
@@ -61,7 +63,8 @@ def _host_consts(field: Field) -> dict:
         "r2": field.r2_limbs.astype(np.int64),
         "one_std": int_to_limbs(1, n).astype(np.int64),
         "fold": fold,
-        "fold2": fold[idx].reshape(n * n, n),
+        "fold2_lo": (fold2 & 0xFF).astype(np.float64),
+        "fold2_hi": (fold2 >> 8).astype(np.float64),
         "qweights": qweights,
     }
 
@@ -127,13 +130,19 @@ def conv(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 def _folded_product(c: dict, a, b):
     """n columns whose value is congruent to a*b*R^-1 (each < n^2 2^48).
-    int64 matmul exists on the CPU only; on the card the product columns
-    are folded with a broadcast multiply-sum instead (same integers)."""
+    On the CPU the outer product folds by two float64 matmuls, one per
+    byte of the fold constants: each sum of n^2 terms < 2^32 * 2^8 stays
+    below 2^53, so both are exact, and the columns are lo + 256 * hi (an
+    int64 matmul has no BLAS and is tens of times slower). On the card the
+    product columns are folded with a broadcast multiply-sum instead (same
+    integers)."""
     if a.device.type == "cpu":
         n = a.shape[-1]
         outer = (a.unsqueeze(-1) * b.unsqueeze(-2)).reshape(
-            a.shape[:-1] + (n * n,))
-        return outer @ c["fold2"]
+            a.shape[:-1] + (n * n,)).to(torch.float64)
+        lo = (outer @ c["fold2_lo"]).to(I64)
+        hi = (outer @ c["fold2_hi"]).to(I64)
+        return lo + (hi << 8)
     return (conv(a, b).unsqueeze(-1) * c["fold"]).sum(-2)
 
 

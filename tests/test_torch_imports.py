@@ -2,9 +2,13 @@
 cosnarks_tpu_torch, chip_smoke.py, the port's PLONK zkey fixture
 (scripts/torch_plonk_fixture.py), its VM timing script
 (scripts/torch_vm_turns.py), its CLI cold-start script
-(scripts/torch_cli_cold_start.py) and the CLI process runner they share
-with chip_smoke.py (scripts/torch_cli_procs.py), checked on its syntax
-tree."""
+(scripts/torch_cli_cold_start.py), the CLI process runner they share
+with chip_smoke.py (scripts/torch_cli_procs.py), its PLONK profile and
+UltraHonk probe (scripts/torch_plonk_profile.py,
+scripts/torch_honk_probe.py) and the trace summary they share
+(scripts/torch_trace.py), checked on its syntax tree. The coNoir
+modules (noir/, honk/) import no `msgpack` either: the port reads ACIR
+with its own noir/_msgpack.py."""
 
 import ast
 from pathlib import Path
@@ -17,7 +21,12 @@ FILES = PACKAGE + [ROOT / "chip_smoke.py",
                    ROOT / "scripts" / "torch_plonk_fixture.py",
                    ROOT / "scripts" / "torch_vm_turns.py",
                    ROOT / "scripts" / "torch_cli_cold_start.py",
-                   ROOT / "scripts" / "torch_cli_procs.py"]
+                   ROOT / "scripts" / "torch_cli_procs.py",
+                   ROOT / "scripts" / "torch_plonk_profile.py",
+                   ROOT / "scripts" / "torch_honk_probe.py",
+                   ROOT / "scripts" / "torch_trace.py"]
+CONOIR = [p for p in PACKAGE
+          if p.parent.name in ("noir", "honk")]
 
 
 def _forbidden(name: str) -> bool:
@@ -41,6 +50,15 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+@pytest.mark.parametrize("path", CONOIR,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_conoir_imports_no_msgpack(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = [name for name in _imported(tree)
+           if name == "msgpack" or name.startswith("msgpack.")]
+    assert not bad, f"{path.name} imports {bad}"
+
+
 def test_port_package_is_complete():
     names = {str(p.relative_to(ROOT / "cosnarks_tpu_torch")) for p in PACKAGE}
     for module in ("ff/mont.py", "ff/mont_kernel.py", "ec/ec_kernels.py",
@@ -52,5 +70,16 @@ def test_port_package_is_complete():
                    "mpc/rep3_ring.py", "gadgets/poseidon2.py",
                    "utils/timing.py", "mpc/net/config.py", "mpc/net/tcp.py",
                    "mpc/net/tls.py", "mpc/net/tcp_session.py",
-                   "mpc/net/udp.py", "cli.py", "__main__.py"):
+                   "mpc/net/udp.py", "cli.py", "__main__.py",
+                   "noir/_msgpack.py", "noir/acir.py", "noir/brillig.py",
+                   "noir/blackbox_hash.py", "noir/solver.py",
+                   "noir/synthetic.py", "honk/transcript.py",
+                   "honk/transcript_driver.py", "honk/crs.py",
+                   "honk/polyops.py", "honk/builder.py", "honk/field_ct.py",
+                   "honk/builder_gadgets.py", "honk/proving_key.py",
+                   "honk/relations.py", "honk/prover.py",
+                   "honk/verifier.py", "honk/co_driver.py",
+                   "honk/co_prover.py"):
         assert module in names
+    g2 = ROOT / "cosnarks_tpu_torch" / "honk" / "data" / "bn254_g2.dat"
+    assert g2.stat().st_size == 128
