@@ -75,14 +75,29 @@ Phases, one JSON line each; any failure exits non-zero:
      local_crs(2^16, device=cuda) (K2); the 3-party co-ACVM and MPC
      UltraBuilder (host Python, taking turns), each party's proving key
      and vk (commitments by msm()), split_builder_pk, then co_prove
-     (Keccak) twice; the plain pipeline proves the same program in both
+     (Keccak) once (twice before the CLI phase 3h joined the smoke's
+     time); the plain pipeline proves the same program in both
      flavors on the card and verifies on the host. Every party's proof is
      the same and equals the plain Keccak proof word for word, the opened
      witness equals the plain one, a changed word is refused, one
-     commitment of the warm co-proof equals the host Pippenger on the
-     opened coefficients, and K1, K3 and K4 launched in the warm proof;
+     commitment of the co-proof equals the host Pippenger on the
+     opened coefficients, and K1, K3 and K4 launched in the proof;
      the line carries each stage's seconds, the co-prover's parts a
      party, rounds a party, launches and peak device memory;
+  3h. cli_tcp_noir, the same program and plain witness through the coNoir
+     CLI as separate processes (python -m cosnarks_tpu_torch.noir): prove
+     (Keccak) beside split-proving-key REP3 and SHAMIR, then at once
+     three generate-proof --protocol REP3 processes over TLS, three
+     --protocol SHAMIR (n = 3, t = 1) over plaintext TCP, verify and verify
+     of a changed proof; the CLI's plain proof and the six co-proof files are
+     byte-identical to 3g's plain Keccak proof, verify exits 0 then 1, and
+     every generate-proof process launched each 8-word K1-K4 mode of 3g's
+     co-proof; the line carries each stage's seconds, each party's phases,
+     bytes a peer, rounds, Shamir pair refills and peak device memory;
+  3i. multidevice: entry()'s step (two sparse matvecs, three odd-coset
+     shifts) on the card equal limb for limb to the same step on the CPU,
+     then dryrun_multichip(1) over NCCL with 2^16 points a rank (its msm()
+     runs K4 and K3), checked against the host curve; K1-K4 launched;
   4. a 2^20-point G1 MSM at c = 15 over points [k_i]G made on the card,
      checked against the host's [sum s_i k_i]G;
   4b. the same MSM through the other split, _host_horner(_pippenger_wsums):
@@ -119,6 +134,7 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
 BN_PHASE, BLS_PHASE = "rep3_groth16", "bls12_381_rep3_groth16"
@@ -184,6 +200,10 @@ def pow2(n: int) -> str:
 
 
 def emit(obj):
+    """Print one JSON line; a phase line also carries `at_s`, the seconds
+    since the script started, so each phase's share of the run shows."""
+    if "phase" in obj:
+        obj = {**obj, "at_s": time.perf_counter() - START}
     print(json.dumps(obj), flush=True)
 
 
@@ -207,7 +227,7 @@ def cli_tcp_groth16(zkey, w, required) -> dict:
     (split-input), the witness extended by three REP3 processes over
     plaintext TCP (generate-witness), proved by three processes over TLS
     with the keys of examples/configs/tls (generate-proof groth16) and
-    verified (verify groth16), then refused with a changed public input.
+    verified (verify groth16) beside a verify refusing a changed public input.
     Fails unless every process exits as it should, the witness opened from
     the three .shared files is the zkey's and the three proof files are
     byte-identical, and unless every generate-witness process launched K1
@@ -277,12 +297,12 @@ def cli_tcp_groth16(zkey, w, required) -> dict:
                                      "the zkey's public input")
         verify_argv = ["verify", "groth16", "--vk", path("vk.json"),
                        "--proof", path("proof.0.json"), "--public-input"]
-        ok = run_cli([verify_argv + [path("public.0.json")]], tmp, "verify")
         with open(path("public.bad.json"), "w") as fh:
             fh.write(jsonio.public_to_json([(w[1] + 1) % zkey.fr.p]
                                            + w[2:n_inst]))
-        bad = run_cli([verify_argv + [path("public.bad.json")]], tmp,
-                      "verify-changed", expect=1)
+        ok, bad = run_cli([verify_argv + [path("public.0.json")],
+                           verify_argv + [path("public.bad.json")]], tmp,
+                          "verify", expect=[0, 1])
     for stage_name, runs, need in (("generate-witness", wit,
                                     [("mul", "8w:0")]),
                                    ("generate-proof", proof, required)):
@@ -293,10 +313,10 @@ def cli_tcp_groth16(zkey, w, required) -> dict:
                 raise AssertionError(f"cli_tcp_groth16: {stage_name} party "
                                      f"{i} launched no {missing}: "
                                      f"{r['launches']}")
-    if ok[0]["stdout"].strip() != "verification: OK" or \
-            bad[0]["stdout"].strip() != "verification: FAILED":
+    if ok["stdout"].strip() != "verification: OK" or \
+            bad["stdout"].strip() != "verification: FAILED":
         raise AssertionError("cli_tcp_groth16: verify said "
-                             f"{ok[0]['stdout']!r} / {bad[0]['stdout']!r}")
+                             f"{ok['stdout']!r} / {bad['stdout']!r}")
 
     def stage(runs):
         return {"wall_s": max(r["seconds"] for r in runs),
@@ -310,14 +330,168 @@ def cli_tcp_groth16(zkey, w, required) -> dict:
             "stages": {"split-input": stage(split),
                        "generate-witness (REP3, TCP)": stage(wit),
                        "generate-proof (groth16, TLS)": stage(proof),
-                       "verify": stage(ok),
-                       "verify (changed public input)": stage(bad)},
+                       "verify, beside verify with a changed public "
+                       "input": stage([ok, bad])},
             "tcp_vm_ms_by_party": [r["phases_ms"].get("Witness extension")
                                    for r in wit],
             "tls_prove_ms_by_party": [r["phases_ms"].get("Generate proof")
                                       for r in proof],
             "witness_matches_zkey": True, "proofs_identical": identical,
             "verify_ok_exit": 0, "verify_changed_exit": 1}
+
+
+def cli_tcp_noir(program, wmap, plain_proof, required) -> dict:
+    """The coNoir pipeline as its users run it: every stage a CLI process
+    (python -m cosnarks_tpu_torch.noir), the parties three processes at
+    once on one card. The program (`synthetic.synthetic_program(**program)`)
+    and its plain witness stack `wmap` are written to a temporary
+    directory; `prove` (Keccak) and split-proving-key REP3 and SHAMIR run
+    at once; then, all at once, three generate-proof --protocol REP3
+    processes over TLS with the keys of examples/configs/tls, three
+    --protocol SHAMIR processes (n = 3, t = 1) over plaintext TCP, verify
+    (exit 0) and verify of a proof with one word changed (exit 1): the
+    co-provers wait on their peers far more than they use the card, so
+    the stages overlap (scripts/torch_noir_cli_overlap.py measures both
+    orders). Fails unless every process exits as it should, the CLI's
+    plain proof and public inputs are `plain_proof`'s bytes, the six
+    co-proof files are byte-identical to them, and every generate-proof
+    process launched each (wrapper, key) of `required` (the launch counts
+    each prints). Returns the phase line's fields."""
+    from cosnarks_tpu_torch.honk import transcript
+    from cosnarks_tpu_torch.honk.polyops import R
+    from cosnarks_tpu_torch.noir import acir, synthetic
+    from torch_cli_procs import party_configs, run_cli
+
+    H = transcript.HASHERS["keccak"]
+    want = (H.to_buffer(plain_proof[0]), H.to_buffer(plain_proof[1]))
+    tls_dir = os.path.join(ROOT, "examples", "configs", "tls")
+
+    def cli(argvs, tmp, stage, expect=0):
+        return run_cli(argvs, tmp, stage, expect=expect,
+                       module="cosnarks_tpu_torch.noir")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        def read(name):
+            with open(path(name), "rb") as fh:
+                return fh.read()
+
+        t0 = time.perf_counter()
+        acir.dump_artifact(path("program.json"),
+                           *synthetic.synthetic_program(**program))
+        acir.write_witness_stack(path("witness.gz"), wmap)
+        t_files = time.perf_counter() - t0
+        given = ["--circuit", path("program.json"), "--witness",
+                 path("witness.gz")]
+        keccak = ["--hasher", "KECCAK"]
+        first = cli([["prove", *given, "--out", path("proof"),
+                      "--public-input", path("public"), "--vk", path("vk"),
+                      *keccak]]
+                    + [["split-proving-key", *given, "--out-dir", path(p),
+                        "--protocol", p] for p in ("REP3", "SHAMIR")],
+                    tmp, "prove+split-proving-key")
+        if (read("proof"), read("public")) != want:
+            raise AssertionError("cli_tcp_noir: the CLI's plain proof is not "
+                                 "the in-process plain proof")
+        bad = list(plain_proof[0])
+        bad[len(bad) // 2] = (bad[len(bad) // 2] + 1) % R
+        with open(path("proof.bad"), "wb") as fh:
+            fh.write(H.to_buffer(bad))
+        verify = ["verify", "--public-input", path("public"), "--vk",
+                  path("vk"), *keccak, "--proof"]
+        argvs = []
+        for proto, cfg in (("REP3", party_configs(tmp, "tls", tls_dir)),
+                           ("SHAMIR", party_configs(tmp, "tcp", None))):
+            argvs += [[
+                "generate-proof", "--protocol", proto, "--proving-key",
+                path(f"{proto}/pk.{i}.shared"), "--proving-key-public",
+                path(f"{proto}/pk_public.npz"), "--config", cfg[i], "--out",
+                path(f"{proto}.proof.{i}"), "--public-input",
+                path(f"{proto}.public.{i}"), *keccak] for i in range(3)]
+        rs = cli(argvs + [verify + [path("proof")],
+                          verify + [path("proof.bad")]], tmp,
+                 "generate-proof REP3 and SHAMIR, verify",
+                 expect=[0] * 6 + [0, 1])
+        runs = {"REP3": rs[:3], "SHAMIR": rs[3:6]}
+        ok, refused = rs[6:]
+        for proto in runs:
+            for i in range(3):
+                if (read(f"{proto}.proof.{i}"),
+                        read(f"{proto}.public.{i}")) != want:
+                    raise AssertionError(f"cli_tcp_noir: {proto} party {i}'s "
+                                         "proof is not the plain proof")
+    for proto, rs in runs.items():
+        for i, r in enumerate(rs):
+            missing = [n for n in required
+                       if not r["launches"].get(n[0], {}).get(n[1])]
+            if missing:
+                raise AssertionError(f"cli_tcp_noir: {proto} party {i} "
+                                     f"launched no {missing}: "
+                                     f"{r['launches']}")
+    if ok["stdout"].strip() != "verified" or \
+            refused["stdout"].strip() != "verification FAILED":
+        raise AssertionError("cli_tcp_noir: verify said "
+                             f"{ok['stdout']!r} / {refused['stdout']!r}")
+
+    def stage(rs):
+        return {"wall_s": max(r["seconds"] for r in rs),
+                "process_s": [r["seconds"] for r in rs],
+                "phases_ms_by_party": [r["phases_ms"] for r in rs],
+                "net_bytes_by_party": [r["net_bytes_by_peer"] for r in rs],
+                "counts_by_party": [r["counts"] for r in rs],
+                "launches_by_party": [r["launches"] for r in rs]}
+
+    return {"program": program, "write_files_s": t_files,
+            "stages": {"prove + split-proving-key REP3, SHAMIR": stage(first),
+                       "generate-proof (REP3, TLS)": stage(runs["REP3"]),
+                       "generate-proof (SHAMIR, TCP)": stage(runs["SHAMIR"]),
+                       "verify, verify of a changed proof": stage(
+                           [ok, refused])},
+            "stages_at_once": ["generate-proof (REP3, TLS)",
+                               "generate-proof (SHAMIR, TCP)",
+                               "verify, verify of a changed proof"],
+            "co_prove_ms_by_party": {
+                p: [r["phases_ms"].get("Generate proof") for r in rs]
+                for p, rs in runs.items()},
+            "peak_device_bytes_by_party": {
+                p: [r["counts"].get("peak_device_bytes") for r in rs]
+                for p, rs in runs.items()},
+            "rounds_by_party": {p: [r["counts"].get("rounds") for r in rs]
+                                for p, rs in runs.items()},
+            "shamir_pair_refills_by_party": [
+                r["counts"].get("pair_refills") for r in runs["SHAMIR"]],
+            "proofs_identical": True, "verify_ok_exit": 0,
+            "verify_changed_exit": 1}
+
+
+def multidevice_phase(dev) -> dict:
+    """`multidevice.entry()`'s step on the card held limb for limb to the
+    same step on the CPU (the kernels' plain versions), then
+    `dryrun_multichip(1)` over NCCL with 2^16 points a rank, so that its
+    msm() runs K4 and K3; the dry run checks itself against the host
+    curve. Returns the phase line's fields."""
+    import torch
+
+    from cosnarks_tpu_torch import multidevice
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step, args = multidevice.entry(dev)
+    out = step(*args)
+    torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    cpu_step, cpu_args = multidevice.entry("cpu")
+    if not torch.equal(out.cpu(), cpu_step(*cpu_args)):
+        raise AssertionError("multidevice: entry() on the card != on the CPU")
+    t0 = time.perf_counter()
+    ranks = multidevice.dryrun_multichip(1, dev, points_per_rank=1 << 16,
+                                         timeout_s=300)
+    torch.cuda.synchronize()
+    return {"entry_step_s": t_step, "entry_equals_cpu": True,
+            "dryrun_s": time.perf_counter() - t0, "ranks": ranks,
+            "backend": "nccl", "msm_points_per_rank": 1 << 16}
 
 
 def smi(query: str) -> str:
@@ -1196,8 +1370,8 @@ def main() -> int:
     # back; its input shared; the 3-party co-ACVM and MPC UltraBuilder
     # (host Python, taking turns); each party's proving key (precomputed
     # polynomials public, witness shared) and vk on the card; co_prove
-    # (Keccak) twice, barriers splitting the launch counts into the first
-    # and the warm proof. The CRS is made on the card by local_crs (K2).
+    # (Keccak) once, between two barriers that split off its launch counts.
+    # The CRS is made on the card by local_crs (K2).
     # The plain pipeline proves the same witness in both flavors.
     fr_p = hpolyops.R
     program = synthetic.SMOKE_PROGRAM
@@ -1242,17 +1416,18 @@ def main() -> int:
         def action():
             torch.cuda.synchronize()
             noir_stages[name] = (time.perf_counter(), read_counts())
-            if name == "first":
+            if name == "start":
                 clear_counts()
                 torch.cuda.reset_peak_memory_stats()
                 spy_on[0] = True
-            if name == "warm":
+            if name == "proved":
                 noir_stages["peak"] = torch.cuda.max_memory_allocated()
                 spy_on[0] = False
         return action
 
-    bar_first = threading.Barrier(3, action=noir_stage("first"), timeout=900)
-    bar_warm = threading.Barrier(3, action=noir_stage("warm"), timeout=900)
+    bar_start = threading.Barrier(3, action=noir_stage("start"), timeout=900)
+    bar_proved = threading.Barrier(3, action=noir_stage("proved"),
+                                   timeout=900)
 
     def noir_party(net):
         i = net.id
@@ -1288,19 +1463,18 @@ def main() -> int:
         shared = hco.shared_witness_to_device(shared, dev)
         torch.cuda.synchronize()
         out["to_device_s"] = time.perf_counter() - t
-        proofs, timings = [], []
-        for bar in (bar_first, bar_warm):
-            tim = {}
-            t = time.perf_counter()
-            proofs.append(hco.co_prove(pk_pub, shared, vk, hcrs_dev, keccak,
-                                       drv, timings=tim))
-            tim["total"] = time.perf_counter() - t
-            timings.append(tim)
-            with net.turn.blocked():
-                bar.wait()
-        out["prove_rounds"] = drv.rounds // 2
-        out["prove_s"] = timings
-        return out, opened, vk, proofs, pk_pub.circuit_size
+        with net.turn.blocked():
+            bar_start.wait()
+        tim = {}
+        t = time.perf_counter()
+        proof = hco.co_prove(pk_pub, shared, vk, hcrs_dev, keccak, drv,
+                             timings=tim)
+        tim["total"] = time.perf_counter() - t
+        with net.turn.blocked():
+            bar_proved.wait()
+        out["prove_rounds"] = drv.rounds
+        out["prove_s"] = tim
+        return out, opened, vk, proof, pk_pub.circuit_size
 
     Rep3HonkDriver.commit_open = spy
     try:
@@ -1311,12 +1485,11 @@ def main() -> int:
         Rep3HonkDriver.commit_open = commit_open
     noir_wall = time.perf_counter() - t0
     launched = record(NOIR_PHASE)
-    t_first_end = noir_stages["first"][0]
-    t_warm = noir_stages["warm"][0] - t_first_end
+    t_proof = noir_stages["proved"][0] - noir_stages["start"][0]
     require_launched(NOIR_PHASE, ["K1 mont_mul", "K3 proj add",
                                   "K4 fold level 0"])
-    co_proof = nres[0][3][1]
-    if not all(r[3][0] == co_proof and r[3][1] == co_proof for r in nres):
+    co_proof = nres[0][3]
+    if not all(r[3] == co_proof for r in nres):
         raise AssertionError("coNoir: parties' proofs differ")
     if nres[0][4] != 1 << 16:
         raise AssertionError(f"coNoir: circuit size {nres[0][4]}")
@@ -1357,7 +1530,7 @@ def main() -> int:
             if hverifier.verify(bad, proof[1], plain_vk, hcrs_dev.g2_x,
                                 hasher):
                 raise AssertionError("coNoir: a changed proof verified")
-    # one commitment of the warm co-proof against the host Pippenger on the
+    # one commitment of the co-proof against the host Pippenger on the
     # opened coefficients (outside the phase's timings)
     t0 = time.perf_counter()
     coeffs = [sum(v) % fr_p for v in zip(*[
@@ -1381,7 +1554,7 @@ def main() -> int:
                             "to_device_by_party": [r[0]["to_device_s"]
                                                    for r in nres]},
           "co_prove_seconds_by_party": [r[0]["prove_s"] for r in nres],
-          "warm_co_prove_s": t_warm, "wall_s": noir_wall,
+          "co_prove_s": t_proof, "wall_s": noir_wall,
           "plain_key_s": t_plain_key, "plain_prove_s": plain_s,
           "plain_prove_parts": plain_timings, "verify_s": verify_s,
           "rounds_by_party": [{"acvm": r[0]["acvm_rounds"],
@@ -1389,10 +1562,10 @@ def main() -> int:
                                "co_prove": r[0]["prove_rounds"]}
                               for r in nres],
           "crs_launches": crs_launches,
-          "first_proof_launches": {
+          "setup_launches": {
               k: sum(v.values())
-              for k, v in noir_stages["first"][1].items()},
-          "peak_device_bytes_warm": noir_stages["peak"],
+              for k, v in noir_stages["start"][1].items()},
+          "peak_device_bytes": noir_stages["peak"],
           "proof_words": len(co_proof[0]), "public_inputs": co_proof[1],
           "parties_agree": True, "equals_plain_keccak": True,
           "witness_matches_plain": True, "verified": True,
@@ -1401,8 +1574,36 @@ def main() -> int:
                                "equals_host_pippenger": True,
                                "seconds": t_commit_check},
           **launched})
+    noir_prove_s = [r[0]["prove_s"] for r in nres]
     del nres, plain_pk, hcrs_dev, art, af
     torch.cuda.empty_cache()
+
+    # ---- phase 3h: the same program through the coNoir CLI, as users run
+    # it: prove, split-proving-key, three REP3 generate-proof processes
+    # over TLS, three SHAMIR ones over TCP, verify --------------------------
+    t0 = time.perf_counter()
+    noir_required = [
+        (fn.__qualname__, key)
+        for fn in (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
+                   ek.fold_launch)
+        for key, n in counts_by_phase[NOIR_PHASE][fn.__qualname__].items()
+        if n and key.startswith("8w:") and not key.endswith(WG.g1.name)]
+    cli_noir = cli_tcp_noir(program, pw, co_proof, noir_required)
+    emit({"phase": "cli_tcp_noir", "rows": 1 << 16,
+          "wall_s": time.perf_counter() - t0, **cli_noir,
+          "required_launches": [f"{a} {b}" for a, b in noir_required],
+          "in_process_co_prove_s_by_party": [r_s["total"]
+                                             for r_s in noir_prove_s]})
+    del pw
+
+    # ---- phase 3i: one party's local step and the multi-device dry run ----
+    clear_counts()
+    md_line = multidevice_phase(dev)
+    launched = record("multidevice")
+    require_launched("multidevice", ["K1 mont_mul", "K2 jacobian add",
+                                     "K2 jacobian double", "K3 proj add",
+                                     "K4 fold level 0"])
+    emit({"phase": "multidevice", **md_line, **launched})
 
     # ---- phase 4: bench.py's shape: 2^20-point G1 MSM at c = 15 ----------
     nm = 1 << 20

@@ -1,10 +1,13 @@
 """Rep3 shared-vector driver for the collaborative UltraHonk prover:
 PyTorch port of cosnarks_tpu.honk.co_driver.
 
-The MPC counterpart of relations.FV: an `SVec` holds a party's Rep3 share
-of a vector, the port's `mpc.rep3.Share` of two (k, 16) Montgomery limb
-tensors on the device. Linear algebra (add/sub/neg, public scaling) is
-local; `*` between two SVecs is ONE batched Rep3 multiplication round
+The MPC counterpart of relations.FV: an `SVec` holds a party's share of
+a vector in its driver's form, here the port's `mpc.rep3.Share` of two
+(k, 16) Montgomery limb tensors on the device (honk/shamir_honk.py's
+driver keeps one tensor). Every operation goes through the driver, so a
+public constant lands where the protocol needs it. Linear algebra
+(add/sub/neg, public scaling) is local; `*` between two SVecs is ONE
+batched Rep3 multiplication round
 (`rep3.local_mul` + `reshare`, mpc-core rep3/arithmetic.rs:104-177)
 through the driver bound to the operands, so the plain relation formulas
 in relations.py run unchanged over shares, each operator call a
@@ -35,49 +38,52 @@ from .polyops import FR
 
 
 class SVec:
-    """Vector of replicated shares (the party's Share `s`)."""
+    """A party's share of a vector, `s`, in its driver's form: a Rep3
+    `Share` of two (k, 16) Montgomery limb tensors here, one (k, 16)
+    tensor for a Shamir driver (honk/shamir_honk.py). Every operation goes
+    through the driver bound to it, so the relation formulas run unchanged
+    over either protocol."""
 
     __slots__ = ("s", "drv")
     _is_shared = True
 
-    def __init__(self, s: Share, drv):
+    def __init__(self, s, drv):
         self.s = s
         self.drv = drv
 
     def __len__(self):
-        return self.s.a.shape[0]
+        return self.drv.comps(self.s)[0].shape[0]
 
     # -- linear -------------------------------------------------------------
     def _pub(self, o):
         """Public operand -> limb tensor (FV or python int)."""
         if hasattr(o, "t"):
             return o.t  # relations.FV
-        return polyops.const(o, self.s.a.device)
+        return polyops.const(o, self.device)
 
     def __add__(self, o):
         if isinstance(o, SVec):
-            return SVec(rep3.add(FR, self.s, o.s), self.drv)
-        return SVec(rep3.add_public(FR, self.s, self._pub(o), self.drv.id),
-                    self.drv)
+            return SVec(self.drv.add(self.s, o.s), self.drv)
+        return SVec(self.drv.add_public(self.s, self._pub(o)), self.drv)
 
     __radd__ = __add__
 
     def __sub__(self, o):
         if isinstance(o, SVec):
-            return SVec(rep3.sub(FR, self.s, o.s), self.drv)
+            return SVec(self.drv.sub(self.s, o.s), self.drv)
         neg = polyops.sub(torch.zeros_like(self._pub(o)), self._pub(o))
-        return SVec(rep3.add_public(FR, self.s, neg, self.drv.id), self.drv)
+        return SVec(self.drv.add_public(self.s, neg), self.drv)
 
     def __rsub__(self, o):
         return self.__neg__().__add__(o)
 
     def __neg__(self):
-        return SVec(rep3.neg(FR, self.s), self.drv)
+        return SVec(self.drv.neg(self.s), self.drv)
 
     def __mul__(self, o):
         if isinstance(o, SVec):
             return self.drv.mul_vec(self, o)
-        return SVec(rep3.mul_public(FR, self.s, self._pub(o)), self.drv)
+        return SVec(self.drv.mul_public(self.s, self._pub(o)), self.drv)
 
     __rmul__ = __mul__
 
@@ -87,11 +93,11 @@ class SVec:
             t = t.reshape(nblocks, -1, t.shape[-1])
             return polyops.sum_rows(t.transpose(0, 1))
 
-        return SVec(Share(per(self.s.a), per(self.s.b)), self.drv)
+        return SVec(self.drv.lin(per, self.s), self.drv)
 
     @property
     def device(self):
-        return self.s.a.device
+        return self.drv.comps(self.s)[0].device
 
 
 class ZeroPool:
@@ -136,7 +142,24 @@ class Rep3HonkDriver:
 
     # -- construction -------------------------------------------------------
     def wrap(self, a, b) -> SVec:
+        """SVec from the share's component tensors (`comps`' inverse)."""
         return SVec(Share(a, b), self)
+
+    def vec(self, x: Share) -> SVec:
+        return SVec(x, self)
+
+    @staticmethod
+    def comps(x: Share) -> tuple:
+        """The share's component tensors: (a, b)."""
+        return (x.a, x.b)
+
+    @staticmethod
+    def to_share(col, device) -> Share:
+        """A column of host AShares, or a Share, as a Share on `device`."""
+        if isinstance(col, Share):
+            return Share(col.a.to(device), col.b.to(device))
+        return Share(polyops.encode([s.a for s in col], device),
+                     polyops.encode([s.b for s in col], device))
 
     def promote(self, t) -> Share:
         """Public tensor -> trivial share."""
@@ -149,6 +172,26 @@ class Rep3HonkDriver:
     def lin(self, fn, *xs):
         """A linear tensor function applied to each share component."""
         return Share(fn(*[x.a for x in xs]), fn(*[x.b for x in xs]))
+
+    @staticmethod
+    def add(x: Share, y: Share) -> Share:
+        return rep3.add(FR, x, y)
+
+    @staticmethod
+    def sub(x: Share, y: Share) -> Share:
+        return rep3.sub(FR, x, y)
+
+    @staticmethod
+    def neg(x: Share) -> Share:
+        return rep3.neg(FR, x)
+
+    def add_public(self, x: Share, v) -> Share:
+        """x + v for a public tensor v: one component on parties 0 and 2."""
+        return rep3.add_public(FR, x, v, self.id)
+
+    @staticmethod
+    def mul_public(x: Share, v) -> Share:
+        return rep3.mul_public(FR, x, v)
 
     def zeros(self, k: int) -> Share:
         z = polyops.zeros(k, self.device)

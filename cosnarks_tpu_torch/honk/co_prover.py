@@ -1,8 +1,8 @@
-"""Collaborative (Rep3) UltraHonk prover: PyTorch port of
-cosnarks_tpu.honk.co_prover.
+"""Collaborative UltraHonk prover (Rep3, or Shamir through
+honk/shamir_honk.py's driver): PyTorch port of cosnarks_tpu.honk.co_prover.
 
 Mirrors co-ultrahonk/src/{co_oink/co_oink_prover.rs, co_ultra_prover.rs,
-co_decider/*}: the witness polynomials are Rep3-shared, the precomputed
+co_decider/*}: the witness polynomials are shared, the precomputed
 polynomials and the transcript are public. The proof bytes are identical
 to a plain proof of the same witness — every transcript element is an
 opened value:
@@ -31,8 +31,6 @@ from __future__ import annotations
 
 import torch
 
-from ..mpc import rep3
-from ..mpc.rep3 import Share
 from ..mpc.rep3_scalar import AShare
 from . import polyops, prover, relations
 from .co_driver import Rep3HonkDriver
@@ -65,26 +63,24 @@ def share_proving_key(pk: ProvingKey, rng) -> list[dict]:
     return per_party
 
 
-def shared_witness_to_device(shared: dict, device) -> dict:
-    """{name: list of AShare} -> {name: Share of (n, 16) limb tensors on
-    `device`}; Shares pass through (moved to `device`)."""
-    out = {}
-    for name, col in shared.items():
-        if isinstance(col, Share):
-            out[name] = Share(col.a.to(device), col.b.to(device))
-        else:
-            out[name] = Share(polyops.encode([s.a for s in col], device),
-                              polyops.encode([s.b for s in col], device))
-    return out
+def shared_witness_to_device(shared: dict, device, drv=None) -> dict:
+    """{name: column} -> {name: the driver's share on `device`}. A column
+    is a list of host shares or a share already in tensors (moved to
+    `device`): AShares or a Rep3 `Share` for the Rep3 driver (the default),
+    ints or one limb tensor for the Shamir driver (`drv.to_share`)."""
+    to_share = Rep3HonkDriver.to_share if drv is None else drv.to_share
+    return {name: to_share(col, device) for name, col in shared.items()}
 
 
-def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher,
-             drv: Rep3HonkDriver, timings: dict | None = None):
-    """Rep3CoUltraHonk::prove (co_ultra_prover.rs:95): produce the same
-    proof bytes as the plain prover from a shared witness. `pk` carries
-    the public parts (precomputed polys, public inputs, records); the six
-    prover witness polynomials come shared in `shared_witness` (host
-    AShare lists or device Shares). The CRS must be on the driver's
+def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher, drv,
+             timings: dict | None = None):
+    """Rep3CoUltraHonk::prove / ShamirCoUltraHonk::prove
+    (co_ultra_prover.rs:95, :115): produce the same proof bytes as the
+    plain prover from a shared witness, over `drv`, a `Rep3HonkDriver` or
+    a `shamir_honk.ShamirHonkDriver`. `pk` carries the public parts
+    (precomputed polys, public inputs, records); the six prover witness
+    polynomials come shared in `shared_witness` (host shares or the
+    driver's device shares). The CRS must be on the driver's
     device (a host CRS counts as the CPU). `timings`, when given, receives the
     seconds of oink, sumcheck, gemini, shplonk and kzg."""
     n = pk.circuit_size
@@ -95,7 +91,8 @@ def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher,
     pub_stack = device_polys(pk, PRECOMPUTED, dev)
     pub = dict(zip(PRECOMPUTED, pub_stack))
     sw = shared_witness_to_device(
-        {name: shared_witness[name] for name in SHARED_PK_ENTITIES}, dev)
+        {name: shared_witness[name] for name in SHARED_PK_ENTITIES}, dev,
+        drv)
 
     # -- oink ---------------------------------------------------------------
     vk_hash = vk.hash_into_transcript(transcript)
@@ -151,7 +148,8 @@ def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher,
         prover.EntityTable(PRECOMPUTED, [pub_stack], FV),
         prover.EntityTable(
             shared_names,
-            drv.lin(lambda a, b: torch.cat([a, b]), wit_stack, shift_stack),
+            drv.comps(drv.lin(lambda a, b: torch.cat([a, b]), wit_stack,
+                              shift_stack)),
             drv.wrap),
     ]
 
@@ -172,9 +170,9 @@ def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher,
 
     rho = transcript.get_challenge("rho")
     npre = len(PRECOMPUTED)
-    unshifted = rep3.add_public(
-        polyops.FR, prover.batch_polys(drv, rho, wit_stack, start=npre),
-        prover.batch_polys(prover.PlainOps(dev), rho, pub_stack), drv.id)
+    unshifted = drv.add_public(
+        prover.batch_polys(drv, rho, wit_stack, start=npre),
+        prover.batch_polys(prover.PlainOps(dev), rho, pub_stack))
     to_be_shifted = prover.batch_polys(
         drv, rho, drv.lin(lambda t: t[shift_idx], wit_stack),
         start=npre + len(WITNESS))
@@ -186,7 +184,7 @@ def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher,
     return proof[num_public:], proof[:num_public]
 
 
-def _co_w4(pk, sw, etas, drv) -> Share:
+def _co_w4(pk, sw, etas, drv):
     """w_4 plus the memory-record terms (co_oink_prover.rs compute_w4):
     linear in the shared wires, + 1 (promoted) on the write records."""
     rows, is_write = prover.memory_record_rows(pk, drv.device)
@@ -210,16 +208,15 @@ def _co_w4(pk, sw, etas, drv) -> Share:
         w4, ones)
 
 
-def _co_logderiv_inverses(pub, sw, beta, gamma, drv) -> Share:
+def _co_logderiv_inverses(pub, sw, beta, gamma, drv):
     """co_oink_prover.rs:229-293: the shared read term times the public
     write term, masked by q_lookup + (1 - q_lookup) * read_tags in one mul
     round, then the zero-leaking batch inversion."""
     beta_sqr = beta * beta % R
     beta_cub = beta_sqr * beta % R
-    w = {name: drv.wrap(sw[name].a, sw[name].b)
+    w = {name: drv.vec(sw[name])
          for name in ("w_l", "w_r", "w_o", "lookup_read_tags")}
-    ws = {name: drv.wrap(polyops.shifted(sw[name].a),
-                         polyops.shifted(sw[name].b))
+    ws = {name: drv.vec(drv.lin(polyops.shifted, sw[name]))
           for name in ("w_l", "w_r", "w_o")}
     f = {name: FV(pub[name]) for name in (
         "q_r", "q_m", "q_c", "q_o", "q_lookup", "table_1", "table_2",
@@ -236,7 +233,7 @@ def _co_logderiv_inverses(pub, sw, beta, gamma, drv) -> Share:
     return drv.inv_vec_leaking_zeros(masked.s)
 
 
-def _co_grand_product(pk, pub, sw, w4, beta, gamma, drv) -> Share:
+def _co_grand_product(pk, pub, sw, w4, beta, gamma, drv):
     """co_oink_prover.rs:382-470 + CoUtils::array_prod_mul: the four
     numerator and four denominator factors multiplied in two batched
     rounds, constant-round prefix products, one masked inversion."""
@@ -251,7 +248,7 @@ def _co_grand_product(pk, pub, sw, w4, beta, gamma, drv) -> Share:
             polyops.scale(pub[perm].index_select(0, sel), beta),
             polyops.const(gamma, dev))
         g = drv.lin(lambda t: t.index_select(0, sel), wire)
-        return rep3.add_public(polyops.FR, g, pubv, drv.id)
+        return drv.add_public(g, pubv)
 
     nums = [term(w, f"id_{k + 1}") for k, w in enumerate(wires)]
     dens = [term(w, f"sigma_{k + 1}") for k, w in enumerate(wires)]

@@ -233,13 +233,33 @@ def local_mul(field, x, y):
     return mont.mul(field, x, y)
 
 
+_LAGRANGE: dict = {}
+
+
+def _lagrange_tensor(field: Field, party_ids: list[int], device):
+    """`lagrange_at_zero` as (len(party_ids), nlimbs) Montgomery limbs on
+    `device`, encoded once per (field, ids, device)."""
+    key = (field.name, tuple(party_ids), str(device))
+    if key not in _LAGRANGE:
+        _LAGRANGE[key] = mont.encode(field, lagrange_at_zero(field,
+                                                             party_ids),
+                                     device=device)
+    return _LAGRANGE[key]
+
+
 def interpolate(field: Field, shares: list, party_ids: list[int]):
-    lams = mont.encode(field, lagrange_at_zero(field, party_ids),
-                       device=shares[0].device)
-    acc = None
-    for lam, s in zip(lams, shares):
-        term = mont.mul(field, s, lam)
-        acc = term if acc is None else mont.add(field, acc, term)
+    """Value at zero from the shares of `party_ids` (the first
+    len(party_ids) of `shares`): the products with the Lagrange
+    coefficients in one batched product, then summed."""
+    first = shares[0]
+    n = len(party_ids)
+    lams = _lagrange_tensor(field, party_ids, first.device)
+    terms = mont.mul(field, torch.stack(list(shares[:n])),
+                     lams.reshape((n,) + (1,) * (first.dim() - 1)
+                                  + (field.nlimbs,)))
+    acc = terms[0]
+    for term in terms[1:]:
+        acc = mont.add(field, acc, term)
     return acc
 
 

@@ -146,6 +146,17 @@ def load_witness_stack(path) -> dict[int, int]:
     return {int(k): _fe(v) for k, v in entries.items()}
 
 
+def write_witness_stack(path, wmap: dict[int, int]) -> None:
+    """`load_witness_stack`'s inverse: one witness map as a gzipped
+    msgpack witness stack (a format byte, then [[[0, {index: value}]]]
+    with each value a 32-byte big-endian field element)."""
+    entries = {int(k): int(v).to_bytes(32, "big")
+               for k, v in sorted(wmap.items())}
+    raw = b"\x02" + _msgpack.packb([[[0, entries]]])
+    with open(path, "wb") as fh:
+        fh.write(gzip.compress(raw, mtime=0))
+
+
 # -- ABI encoding ------------------------------------------------------------
 
 def _flatten_value(typ, val, p):

@@ -80,3 +80,12 @@ def report_launches() -> None:
                    ek.fold_launch, ek.madd_launch, ek.wreduce_launch)
     }
     print(f"kernel launches {json.dumps(counts)}", file=sys.stderr)
+
+
+def report_counts(counts: dict) -> None:
+    """Print a command's protocol counts at pipeline exit, beside the
+    launches: one line, `counts {"<name>": value}` (e.g. rounds, pair
+    refills, peak device bytes)."""
+    if not _enabled:
+        return
+    print(f"counts {json.dumps(counts)}", file=sys.stderr)

@@ -1,12 +1,14 @@
-"""Run the port's CLI (`python -m cosnarks_tpu_torch`) as separate
-processes, one per party, and read what each printed: for chip_smoke.py's
-phase `cli_tcp_groth16` and scripts/torch_cli_cold_start.py.
+"""Run the port's CLIs (`python -m cosnarks_tpu_torch`, or the coNoir
+one, `python -m cosnarks_tpu_torch.noir`) as separate processes, one per
+party, and read what each printed: for chip_smoke.py's phases
+`cli_tcp_groth16` and `cli_tcp_noir` and scripts/torch_cli_cold_start.py.
 
 `party_configs` writes three network TOMLs on loopback ports the OS
 assigns (plaintext TCP with its opt-in, or TLS); `run_cli` starts every
 argv at once, waits for all and parses each one's stderr: the `<phase>
-took N ms` lines, the per-peer byte counters (`timing.report_net`) and the
-kernel launch counts (`timing.report_launches`). Imports nothing of JAX.
+took N ms` lines, the per-peer byte counters (`timing.report_net`), the
+kernel launch counts (`timing.report_launches`) and the protocol counts
+(`timing.report_counts`). Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ PHASE_LINE = re.compile(r"^\s*(.+) took ([0-9.]+) ms$")
 NET_LINE = re.compile(r"^net peer (\d+): sent (\d+) bytes, received (\d+) "
                       r"bytes$")
 LAUNCH_LINE = re.compile(r"^kernel launches (\{.*\})$")
+COUNTS_LINE = re.compile(r"^counts (\{.*\})$")
 
 
 def free_ports(n: int) -> list[int]:
@@ -62,14 +65,15 @@ def party_configs(tmp: str, name: str, tls_dir: str | None) -> list[str]:
 
 
 def run_cli(argvs, tmp: str, stage: str, expect: int = 0,
-            timeout: float = 600.0, cwd: str = ROOT) -> list[dict]:
-    """`python -m cosnarks_tpu_torch <argv>` for every argv at once, from
-    `cwd` (the tree whose package runs), each with its output in files
-    under tmp. Waits for all (kills any left at the timeout) and fails
-    unless each exits `expect`. Returns each process's seconds from the
-    stage's start, its stdout, the `<phase> took N ms` lines of its stderr,
-    its per-peer byte counts and its kernel launches ({} when it printed
-    none)."""
+            timeout: float = 600.0, cwd: str = ROOT,
+            module: str = "cosnarks_tpu_torch") -> list[dict]:
+    """`python -m <module> <argv>` for every argv at once, from `cwd` (the
+    tree whose package runs), each with its output in files under tmp.
+    Waits for all (kills any left at the timeout) and fails unless each
+    exits `expect` (one code for all, or a list of one an argv). Returns
+    each process's seconds from the stage's start, its stdout, the
+    `<phase> took N ms` lines of its stderr, its per-peer byte counts, its
+    kernel launches and its protocol counts ({} when it printed none)."""
     procs, files = [], []
     t0 = time.perf_counter()
     try:
@@ -78,7 +82,7 @@ def run_cli(argvs, tmp: str, stage: str, expect: int = 0,
             err = open(os.path.join(tmp, f"{stage}.{i}.err"), "w+")
             files += [out, err]
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "cosnarks_tpu_torch", *argv],
+                [sys.executable, "-m", module, *argv],
                 cwd=cwd, stdout=out, stderr=err))
         ends = [None] * len(procs)
         while None in ends:
@@ -102,11 +106,12 @@ def run_cli(argvs, tmp: str, stage: str, expect: int = 0,
         stdout, stderr = out.read(), err.read()
         out.close()
         err.close()
-        if p.returncode != expect:
+        want = expect[i] if isinstance(expect, list) else expect
+        if p.returncode != want:
             raise AssertionError(
-                f"{stage}: process {i} exited {p.returncode}, not {expect}:"
+                f"{stage}: process {i} exited {p.returncode}, not {want}:"
                 f"\n{stderr[-3000:]}")
-        phases, net, launches = {}, {}, {}
+        phases, net, launches, counts = {}, {}, {}, {}
         for line in stderr.splitlines():
             if m := PHASE_LINE.match(line):
                 phases[m.group(1)] = float(m.group(2))
@@ -115,7 +120,9 @@ def run_cli(argvs, tmp: str, stage: str, expect: int = 0,
                                    "received": int(m.group(3))}
             elif m := LAUNCH_LINE.match(line):
                 launches = json.loads(m.group(1))
+            elif m := COUNTS_LINE.match(line):
+                counts = json.loads(m.group(1))
         res.append({"seconds": ends[i], "stdout": stdout,
                     "phases_ms": phases, "net_bytes_by_peer": net,
-                    "launches": launches})
+                    "launches": launches, "counts": counts})
     return res

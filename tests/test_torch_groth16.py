@@ -31,6 +31,11 @@ PLAIN_SEED = 7
 SHARE_SEED = 5
 SEEDS = [bytes([i + 1]) * 32 for i in range(3)]
 
+# The child runs on one XLA thread, one core like each test worker: the
+# suite runs several such children beside its workers.
+_CHILD_XLA = ("--xla_cpu_multi_thread_eigen=false "
+              "intra_op_parallelism_threads=1")
+
 # The same steps through cosnarks_tpu, written to argv[1]: zkey arrays
 # (zkey.npz) and both proofs (proofs.json).
 _JAX_REFERENCE = f"""
@@ -70,7 +75,7 @@ def jax_reference(tmp_path_factory):
     """Starts the reference child process; yields a function that waits for
     it and returns (zkey arrays, proofs)."""
     out = tmp_path_factory.mktemp("jax_reference")
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=_CHILD_XLA)
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_REFERENCE, str(out)], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

@@ -46,6 +46,11 @@ def _cpu():
     torch.set_num_threads(threads)
 
 
+# The child runs on one XLA thread, one core like each test worker: the
+# suite runs several such children beside its workers.
+_CHILD_XLA = ("--xla_cpu_multi_thread_eigen=false "
+              "intra_op_parallelism_threads=1")
+
 # The JAX package's plain and Rep3 proofs on the port's zkey arrays
 # (argv[1]/zkey.npz, meta.json), written to argv[1]/proofs.json.
 _JAX_REFERENCE = f"""
@@ -100,7 +105,7 @@ def groth16(tmp_path_factory, _cpu):
     (out / "meta.json").write_text(json.dumps(
         {"n_vars": zkey.n_vars, "n_public": zkey.n_public,
          "domain_size": zkey.domain_size, "w": [str(x) for x in w]}))
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=_CHILD_XLA)
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_REFERENCE, str(out)], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

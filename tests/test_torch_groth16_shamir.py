@@ -27,6 +27,11 @@ N_CONSTRAINTS = 30
 SHARE_SEED = 5
 SEEDS = [bytes([i + 1]) * 32 for i in range(3)]
 
+# The child runs on one XLA thread, one core like each test worker: the
+# suite runs several such children beside its workers.
+_CHILD_XLA = ("--xla_cpu_multi_thread_eigen=false "
+              "intra_op_parallelism_threads=1")
+
 # The same proof through cosnarks_tpu, written to argv[1] as JSON.
 _JAX_REFERENCE = f"""
 import json, random, sys
@@ -56,7 +61,7 @@ def jax_proofs(tmp_path_factory):
     """Starts the reference child process; yields a function that waits for
     it and returns the three parties' proofs."""
     out = tmp_path_factory.mktemp("jax_shamir") / "proofs.json"
-    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=_CHILD_XLA)
     proc = subprocess.Popen(
         [sys.executable, "-c", _JAX_REFERENCE, str(out)], cwd=ROOT, env=env,
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)

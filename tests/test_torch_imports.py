@@ -6,7 +6,9 @@ cosnarks_tpu_torch, chip_smoke.py, the port's PLONK zkey fixture
 with chip_smoke.py (scripts/torch_cli_procs.py), its PLONK profile and
 UltraHonk probe (scripts/torch_plonk_profile.py,
 scripts/torch_honk_probe.py) and the trace summary they share
-(scripts/torch_trace.py), checked on its syntax tree. The coNoir
+(scripts/torch_trace.py) and the coNoir CLI overlap script
+(scripts/torch_noir_cli_overlap.py), checked on its syntax tree. Every JAX module
+but the two Pallas kernel files has a counterpart. The coNoir
 modules (noir/, honk/) import no `msgpack` either: the port reads ACIR
 with its own noir/_msgpack.py."""
 
@@ -24,7 +26,8 @@ FILES = PACKAGE + [ROOT / "chip_smoke.py",
                    ROOT / "scripts" / "torch_cli_procs.py",
                    ROOT / "scripts" / "torch_plonk_profile.py",
                    ROOT / "scripts" / "torch_honk_probe.py",
-                   ROOT / "scripts" / "torch_trace.py"]
+                   ROOT / "scripts" / "torch_trace.py",
+                   ROOT / "scripts" / "torch_noir_cli_overlap.py"]
 CONOIR = [p for p in PACKAGE
           if p.parent.name in ("noir", "honk")]
 
@@ -79,7 +82,24 @@ def test_port_package_is_complete():
                    "honk/builder_gadgets.py", "honk/proving_key.py",
                    "honk/relations.py", "honk/prover.py",
                    "honk/verifier.py", "honk/co_driver.py",
-                   "honk/co_prover.py"):
+                   "honk/co_prover.py", "honk/shamir_honk.py",
+                   "noir/cli.py", "noir/__main__.py", "multidevice.py"):
         assert module in names
     g2 = ROOT / "cosnarks_tpu_torch" / "honk" / "data" / "bn254_g2.dat"
     assert g2.stat().st_size == 128
+
+
+def test_every_jax_module_has_a_counterpart():
+    """Every module of the JAX package but its two Pallas kernel files has
+    one of the same path in the port; the repository root's entry file
+    (one party's local step and the multi-device dry run) has
+    multidevice.py."""
+    jax_names = {str(p.relative_to(ROOT / "cosnarks_tpu"))
+                 for p in (ROOT / "cosnarks_tpu").rglob("*.py")}
+    port_names = {str(p.relative_to(ROOT / "cosnarks_tpu_torch"))
+                  for p in PACKAGE}
+    missing = jax_names - port_names - {"ff/pallas_mont.py",
+                                        "ec/pallas_ec.py"}
+    assert not missing, sorted(missing)
+    assert "multidevice.py" in port_names
+

@@ -42,9 +42,9 @@ PLAIN_SEED = 7
 SHARE_SEED = 5
 SEEDS = [bytes([i + 1]) * 32 for i in range(3)]
 
-# The child runs below the test workers' priority on one XLA thread, so its
-# two-minute compile does not starve timing-sensitive tests on other workers.
-_CHILD = ("nice", "-n", "10")
+# The child runs at the test workers' priority on one XLA thread: one core,
+# like each worker. Below their priority, a loaded run starved its
+# two-minute compile for up to fifteen minutes while this worker waited.
 _CHILD_XLA = ("--xla_cpu_multi_thread_eigen=false "
               "intra_op_parallelism_threads=1")
 
@@ -98,7 +98,7 @@ def circuit(cpu, tmp_path_factory):
     (out / "zkey").write_bytes(data)
     (out / "w.json").write_text(json.dumps([str(v) for v in w]))
     proc = subprocess.Popen(
-        [*_CHILD, sys.executable, "-c", _JAX_REFERENCE, str(out / "zkey"),
+        [sys.executable, "-c", _JAX_REFERENCE, str(out / "zkey"),
          str(out / "w.json"), str(out)], cwd=ROOT,
         env=dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=_CHILD_XLA),
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
@@ -148,21 +148,6 @@ def rep3_proofs(circuit):
 
 def _publics(w):
     return w[1:3]
-
-
-def test_plain_proof_matches_jax_and_verifies(circuit, plain_proof):
-    _, vk, w, jax_proofs = circuit
-    assert plain_proof == jax_proofs()["plain"]
-    assert verify.verify(vk, plain_proof, _publics(w))
-    assert jverify.verify(vk, plain_proof, _publics(w))
-
-
-def test_rep3_proof_matches_jax_and_verifies(circuit, rep3_proofs):
-    _, vk, w, jax_proofs = circuit
-    assert rep3_proofs[0] == rep3_proofs[1] == rep3_proofs[2]
-    assert rep3_proofs == jax_proofs()["rep3"]
-    assert verify.verify(vk, rep3_proofs[0], _publics(w))
-    assert jverify.verify(vk, rep3_proofs[0], _publics(w))
 
 
 def test_tampered_proof_and_publics_are_rejected(circuit, plain_proof):
@@ -232,3 +217,20 @@ def test_doubling_scan_matches_serial(cpu, k):
         serial.append(mont.mul(field, serial[-1], x[i]))
     assert np.array_equal(torch.stack(serial).numpy(),
                           prove._cumprod_mont(field, x).numpy())
+
+
+# The comparisons with the JAX child come last, so that the port's proofs
+# above run while the child compiles.
+def test_rep3_proof_matches_jax_and_verifies(circuit, rep3_proofs):
+    _, vk, w, jax_proofs = circuit
+    assert rep3_proofs[0] == rep3_proofs[1] == rep3_proofs[2]
+    assert rep3_proofs == jax_proofs()["rep3"]
+    assert verify.verify(vk, rep3_proofs[0], _publics(w))
+    assert jverify.verify(vk, rep3_proofs[0], _publics(w))
+
+
+def test_plain_proof_matches_jax_and_verifies(circuit, plain_proof):
+    _, vk, w, jax_proofs = circuit
+    assert plain_proof == jax_proofs()["plain"]
+    assert verify.verify(vk, plain_proof, _publics(w))
+    assert jverify.verify(vk, plain_proof, _publics(w))

@@ -28,9 +28,9 @@ from torch_plonk_fixture import plonk_fixture  # noqa: E402
 FIXTURE = (3, "bls12_381", 1, b"torch-plonk-bls")
 PLAIN_SEED = 11
 
-# The child runs below the test workers' priority on one XLA thread, so its
-# two-minute compile does not starve timing-sensitive tests on other workers.
-_CHILD = ("nice", "-n", "10")
+# The child runs at the test workers' priority on one XLA thread: one core,
+# like each worker. Below their priority, a loaded run starved its
+# two-minute compile for up to fifteen minutes while this worker waited.
 _CHILD_XLA = ("--xla_cpu_multi_thread_eigen=false "
               "intra_op_parallelism_threads=1")
 
@@ -65,7 +65,7 @@ def proofs(tmp_path_factory):
         (out / "zkey").write_bytes(data)
         (out / "w.json").write_text(json.dumps([str(v) for v in w]))
         proc = subprocess.Popen(
-            [*_CHILD, sys.executable, "-c", _JAX_REFERENCE, str(out / "zkey"),
+            [sys.executable, "-c", _JAX_REFERENCE, str(out / "zkey"),
              str(out / "w.json"), str(out / "proof.json")], cwd=ROOT,
             env=dict(os.environ, JAX_PLATFORMS="cpu", XLA_FLAGS=_CHILD_XLA),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
