@@ -25,14 +25,18 @@ Phases, one JSON line each; any failure exits non-zero:
      through its entry point curve.madd (a broadcast affine Q, a bool
      mask), and show that a wrapper raises on a bad CUDA input instead of
      falling back, K6 on a bucket width that is not a power of two;
-  3. the main path: a domain-2^16 synthetic zkey, then the 3-party Rep3
-     Groth16 prover over run_parties, once; every party returns the same
-     proof, it verifies, and every kernel launched during the prove;
-     the phase line carries the launch-size histogram of each prover mode
-     and K4's launches by exact (L, K);
-  3b. the 3-party Shamir (n = 3, t = 1) Groth16 prover on the same zkey,
+  3. the main path, flagship_groth16_2p20: cosnarks_tpu_torch.flagship's
+     domain-2^20 synthetic zkey (2^20 - 2 constraints), then its 3-party
+     Rep3 BN254 Groth16 over run_parties, once (the card warm from phase
+     2); every party returns the same proof, it verifies, and every 8-word
+     K1-K4 prover mode launched during the prove; the phase line carries
+     the zkey's and the prove's seconds, each party's phase seconds, peak
+     device memory, the launch-size histogram of each prover mode and K4's
+     launches by exact (L, K); then the domain-2^16 zkey of phases 3b
+     and 3c;
+  3b. the 3-party Shamir (n = 3, t = 1) Groth16 prover on the 2^16 zkey,
      once (warm card and caches): the same checks, with its own counts;
-  3c. the co-circom path on the same zkey: its squaring chain written as
+  3c. the co-circom path on the 2^16 zkey: its squaring chain written as
      circom (setup.chain_circom, 2^16 - 2 constraints), the input split by
      split_input_rep3, the 3-party Rep3 witness extension (vm/), each
      party's witness Montgomery-encoded on the card by
@@ -42,16 +46,18 @@ Phases, one JSON line each; any failure exits non-zero:
      K1 launched in to_shared_witness_file and every prover mode in the
      proof; the line carries VM, file and prove seconds, the wall time,
      each party's reshare rounds and the launch counts;
-  3c'. cli_tcp_groth16: the same pipeline through the CLI as separate
-     processes (python -m cosnarks_tpu_torch), the zkey, its verifying key
-     and the circuit written to files: split-input, three generate-witness
-     --protocol REP3 processes at once over plaintext TCP, three
-     generate-proof groth16 processes at once over TLS (the keys of
-     examples/configs/tls), verify (exit 0) and verify with a changed
-     public input (exit 1); the witness opened from the .shared files must
-     be the zkey's and the three proof files byte-identical; the line
-     carries each stage's seconds, each party's phase timings and bytes a
-     peer, beside phase 3c's in-process VM and prove seconds;
+  3c'. cli_tcp_groth16: the same pipeline on a 2^15 zkey (cut from 2^16
+     to make room for the 2^20 main path) through the CLI as separate
+     processes (python -m cosnarks_tpu_torch), the zkey, its verifying
+     key and the circuit written to files: split-input, three
+     generate-witness --protocol REP3 processes at once over plaintext
+     TCP, three generate-proof groth16 processes at once over TLS (the
+     keys of examples/configs/tls), verify (exit 0) and verify with a
+     changed public input (exit 1); the witness opened from the .shared
+     files must be the zkey's and the three proof files byte-identical;
+     the line carries each stage's seconds, each party's phase timings
+     and bytes a peer, beside phase 3c's in-process VM and prove seconds
+     (at 2^16);
   3d. the same Rep3 prover over BLS12-381 at domain 2^16, once: a
      BLS12-381 synthetic zkey, every party the same proof, verified by
      verify_bls12_381, every 12-word K1-K4 prover mode and K1 at 8 words
@@ -137,7 +143,13 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate
 SMS, IMAD_PER_CLOCK = 132, 64  # 32-bit integer multiplies per SM per clock
-BN_PHASE, BLS_PHASE = "rep3_groth16", "bls12_381_rep3_groth16"
+# the main path's phase, flagship.py's 3-party Rep3 BN254 Groth16 at 2^20:
+# the 8-word prover modes read their launches from it
+BN_PHASE, BLS_PHASE = "flagship_groth16_2p20", "bls12_381_rep3_groth16"
+FLAGSHIP_LOGN = 20
+# the depth of phase 3c' (cli_tcp_groth16), cut from 2^16 to make room for
+# the main path at 2^20 inside the smoke's time (PERF.md lists the cuts)
+CUT_LOGN = 15
 CIRCOM_PHASE = "rep3_circom_groth16"
 NOIR_PHASE = "rep3_noir_honk"
 PROOFS = (BN_PHASE, "shamir_groth16", CIRCOM_PHASE, BLS_PHASE, "rep3_plonk",
@@ -509,7 +521,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import cosnarks_tpu_torch as ct  # fails outside a checkout of the repo
-    from cosnarks_tpu_torch import _build
+    from cosnarks_tpu_torch import _build, flagship
     from cosnarks_tpu_torch.ec import curve as ec
     from cosnarks_tpu_torch.ec import ec_kernels as ek
     from cosnarks_tpu_torch.ec import host, msm
@@ -524,6 +536,7 @@ def main() -> int:
     from cosnarks_tpu_torch.mpc.net.local import run_parties
     from cosnarks_tpu_torch.plonk import drivers as plonk_drivers
     from cosnarks_tpu_torch.plonk import prove as plonk_prove
+    from cosnarks_tpu_torch.utils import timing
     from cosnarks_tpu_torch.vm import lang, mpc_run
     from cosnarks_tpu_torch.vm.interp import PlainDriver
     from cosnarks_tpu_torch.vm.rep3_driver import Rep3Driver
@@ -1039,10 +1052,8 @@ def main() -> int:
         ek.fold_launch.shapes.clear()
 
     def read_counts():
-        """{wrapper: {"<words>w:<op>": launches}}."""
-        return {c.__qualname__: {key_str(k): n for k, n in
-                                 sorted(c.launches.items())}
-                for c in counters}
+        """{wrapper: {"<words>w:<op>[:<curve>]": launches}}."""
+        return timing.launch_counts()
 
     def read_sizes():
         """The launch-size histogram of every prover mode at both widths:
@@ -1089,18 +1100,36 @@ def main() -> int:
     bls_modes = [n for n, m in modes.items() if m[2] == BLS_PHASE]
     bls_modes.append("K1 mont_mul")
 
-    # ---- phase 3: the main path ------------------------------------------
+    # ---- phase 3: the main path, flagship.py at 2^20 ----------------------
+    # its zkey (a 2^20 - 2 squaring chain, cached under build/zkeys), then
+    # one 3-party Rep3 prove over run_parties on the warm card: every party
+    # the same proof (prove_parties raises otherwise), verify_bn254 accepts,
+    # every 8-word K1-K4 prover mode launched
+    fz = flagship.build_zkey(FLAGSHIP_LOGN, dev)
+    clear_counts()
+    flag = flagship.prove_parties(fz["zkey"], fz["witness"], dev, proves=1)[0]
+    launched = record(BN_PHASE)
+    require_launched(BN_PHASE, prover_modes)
+    if not flag["verified"]:
+        raise AssertionError(f"{BN_PHASE}: proof does not verify")
+    emit({"phase": BN_PHASE, "logn": FLAGSHIP_LOGN,
+          "domain": fz["zkey"].domain_size, "zkey_seconds": fz["seconds"],
+          "zkey_cache_hit": fz["cache_hit"],
+          "zkey_peak_device_bytes": fz["peak_device_bytes"],
+          "prove_s": flag["prove_wall_s"],
+          "prove_s_by_party": flag["prove_s_by_party"], "verified": True,
+          "parties_agree": True,
+          "phase_seconds_by_party": flag["phase_seconds_by_party"],
+          "peak_device_bytes": flag["peak_device_bytes"], **launched})
+    del fz, flag
+    torch.cuda.empty_cache()
+
+    # the 2^16 zkey of phases 3b and 3c
     logn = 16
     t0 = time.perf_counter()
     zkey, w = setup.cached_synthetic_zkey((1 << logn) - 2)
     t_zkey = time.perf_counter() - t0
     n_inst = zkey.n_public + 1
-    shares = rep3.share_field_elements(zkey.fr, w[n_inst:],
-                                       random.Random(0xF1A6), device=dev)
-
-    def rep3_party(net):
-        state = rep3.Rep3State.setup(net, bytes([net.id + 1]) * 32)
-        return drivers.Rep3Driver(net, state), shares[net.id]
 
     def run_prove(make_driver, zkey, w, verify=verify_bn254):
         n_inst = zkey.n_public + 1
@@ -1124,16 +1153,7 @@ def main() -> int:
             raise AssertionError("proof does not verify")
         return res, time.perf_counter() - t0
 
-    clear_counts()
-    res, t_prove = run_prove(rep3_party, zkey, w)
-    launched = record("rep3_groth16")
-    require_launched("rep3_groth16", prover_modes)
-    emit({"phase": "rep3_groth16", "domain": zkey.domain_size,
-          "zkey_seconds": t_zkey, "prove_s": t_prove, "verified": True,
-          "phase_seconds_by_party": [r[1] for r in res], **launched})
-    del shares, res
-
-    # ---- phase 3b: 3-party Shamir (n = 3, t = 1) on the same zkey --------
+    # ---- phase 3b: 3-party Shamir (n = 3, t = 1) on the 2^16 zkey ---------
     sh_shares = shamir.share_values(zkey.fr, w[n_inst:], 3, 1,
                                     random.Random(0x5A17), device=dev)
 
@@ -1147,12 +1167,13 @@ def main() -> int:
     launched = record("shamir_groth16")
     require_launched("shamir_groth16", prover_modes)
     emit({"phase": "shamir_groth16", "domain": zkey.domain_size,
-          "n": 3, "t": 1, "prove_s": t_shamir, "verified": True,
+          "zkey_seconds": t_zkey, "n": 3, "t": 1, "prove_s": t_shamir,
+          "verified": True,
           "phase_seconds_by_party": [r[1] for r in res], **launched})
     del sh_shares, res
 
     # ---- phase 3c: circom -> Rep3 witness extension -> .shared -> proof --
-    # The co-circom CLI's generate-witness and generate-proof on the same
+    # The co-circom CLI's generate-witness and generate-proof on the 2^16
     # zkey, through the port's entry points. Two barriers split the parties'
     # run into three counted stages: the VM (host ints) and
     # to_shared_witness_file (K1 on the card); writing and reading the
@@ -1251,15 +1272,19 @@ def main() -> int:
 
     # ---- phase 3c': the same pipeline through the CLI, as users run it:
     # split-input, three generate-witness processes over TCP, three
-    # generate-proof processes over TLS, verify ---------------------------
+    # generate-proof processes over TLS, verify; on a 2^15 zkey ----------
     t0 = time.perf_counter()
-    cli_line = cli_tcp_groth16(zkey, w, [
+    zkey_cut, w_cut = setup.cached_synthetic_zkey((1 << CUT_LOGN) - 2)
+    t_zkey_cut = time.perf_counter() - t0
+    cli_line = cli_tcp_groth16(zkey_cut, w_cut, [
         (modes[n][0].__qualname__, key_str(modes[n][1]))
         for n in prover_modes])
     emit({"phase": "cli_tcp_groth16", "wall_s": time.perf_counter() - t0,
-          **cli_line, "in_process_vm_s_by_party": vm_s,
+          "zkey_seconds": t_zkey_cut, **cli_line,
+          "in_process_constraints": zkey.n_vars - n_inst,
+          "in_process_vm_s_by_party": vm_s,
           "in_process_prove_s_by_party": circom_prove_s})
-    del zkey
+    del zkey, zkey_cut, w_cut
 
     # ---- phase 3d: 3-party Rep3 over BLS12-381 at domain 2^16 ------------
     t0 = time.perf_counter()

@@ -264,15 +264,22 @@ def cache_home() -> Path:
     return path
 
 
-def cached_synthetic_zkey(n_constraints: int, cache_dir=None, device=None,
-                          curve_pair=BN254):
-    """synthetic_zkey(n_constraints, curve_pair=curve_pair), cached as an
-    .npz file named after the curve."""
+def cache_path(n_constraints: int, cache_dir=None,
+               curve_pair=BN254) -> Path:
+    """The .npz file that caches synthetic_zkey(n_constraints) over
+    `curve_pair`, named after the curve."""
     cache_dir = Path(cache_dir) if cache_dir is not None else cache_home()
     cache_dir.mkdir(parents=True, exist_ok=True)
+    tag = curve_pair[0].name.removesuffix("_g1")
+    return cache_dir / f"synthetic_{tag}_{n_constraints}.npz"
+
+
+def cached_synthetic_zkey(n_constraints: int, cache_dir=None, device=None,
+                          curve_pair=BN254):
+    """synthetic_zkey(n_constraints, curve_pair=curve_pair), cached at
+    `cache_path`."""
     g1 = curve_pair[0]
-    tag = g1.name.removesuffix("_g1")
-    path = cache_dir / f"synthetic_{tag}_{n_constraints}.npz"
+    path = cache_path(n_constraints, cache_dir, curve_pair)
     if path.exists():
         data = np.load(path)
         zkey = Groth16Zkey(

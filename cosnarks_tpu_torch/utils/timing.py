@@ -61,17 +61,14 @@ def report_net(net) -> None:
         )
 
 
-def report_launches() -> None:
-    """Print this process's kernel launches at pipeline exit, beside the
-    byte counters: one line, `kernel launches {"<wrapper>":
-    {"<words>w:<op>[:<curve>]": launches}}`, for every kernel wrapper (K1
+def launch_counts() -> dict:
+    """This process's kernel launches so far: `{"<wrapper>":
+    {"<words>w:<op>[:<curve>]": launches}}` for every kernel wrapper (K1
     `mul`, K2-K6 `*_launch`; see `mont_kernel.count`)."""
-    if not _enabled:
-        return
     from ..ec import ec_kernels as ek
     from ..ff import mont_kernel
 
-    counts = {
+    return {
         fn.__qualname__: {
             mont_kernel.key_str(key): n
             for key, n in sorted(fn.launches.items())
@@ -79,7 +76,14 @@ def report_launches() -> None:
         for fn in (mont_kernel.mul, ek.jacobian_launch, ek.proj_launch,
                    ek.fold_launch, ek.madd_launch, ek.wreduce_launch)
     }
-    print(f"kernel launches {json.dumps(counts)}", file=sys.stderr)
+
+
+def report_launches() -> None:
+    """Print this process's kernel launches at pipeline exit, beside the
+    byte counters: one line, `kernel launches {...}` (`launch_counts`)."""
+    if not _enabled:
+        return
+    print(f"kernel launches {json.dumps(launch_counts())}", file=sys.stderr)
 
 
 def report_counts(counts: dict) -> None:

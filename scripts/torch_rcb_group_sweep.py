@@ -50,7 +50,9 @@ PROJ_GEOMETRIES = [(g, t) for g in (2, 4, 8) for t in (64, 128, 256)]
 FOLD_GEOMETRIES = [(g, t) for g in (2, 8) for t in (64, 128, 256)]
 FOLD_LANES = (160, 208, 2560, 3328, 40960, 53248)
 K = 32
-PROOFS = ("rep3_groth16", "shamir_groth16")
+# the BN254 Groth16 proofs a chip_smoke.py output may hold: the main path
+# (at 2^16 in older outputs, at 2^20 since) and the Shamir proof
+PROOFS = ("rep3_groth16", "flagship_groth16_2p20", "shamir_groth16")
 HBM_BYTES_PER_S = 3.35e12  # as chip_smoke.py
 SMS, IMAD_PER_CLOCK, MULS_PER_FIELD_MUL = 132, 64, 264
 LIMB_BYTES = 16 * 8
@@ -113,6 +115,7 @@ def main() -> int:
         k: _build.resource_usage(k) for k in ("proj_op", "msm_fold")}}),
         flush=True)
     launches = proof_launches(args.loss) if args.loss else None
+    proofs = tuple(launches) if args.loss else ()  # those it holds
     params, b3 = mk.field_params(F), 3 * g1.b
 
     def ptrs(ts):
@@ -181,7 +184,7 @@ def main() -> int:
         return max(int((x - y).abs().max()) for x, y in zip(flat(a), flat(b)))
 
     failed = []
-    loss = {ph: {} for ph in PROOFS}
+    loss = {ph: {} for ph in proofs}
 
     def run_case(case, wrapped, direct, geometries, plain_out, iters, bound,
                  counts=None):
@@ -210,7 +213,7 @@ def main() -> int:
     # K3: P, Q with lane mod 8 = 1 P = Q, 2 P = -Q, 3 P = (0 : 1 : 0),
     # 4 Q = (0 : 1 : 0)
     if args.loss:
-        k3 = {(m, int(b)) for ph in PROOFS
+        k3 = {(m, int(b)) for ph in proofs
               for m, bs in launches[ph][0].items() for b in bs}
     else:
         sizes = ([1, 32, 1 << 14] if args.quick
@@ -251,7 +254,7 @@ def main() -> int:
                 lambda: ek.proj_double_plain(g1, tuple(Ps)), 6, 8),
         }[name]
         counts = ({ph: launches[ph][0].get(name, {}).get(str(n), 0)
-                   for ph in PROOFS} if args.loss else None)
+                   for ph in proofs} if args.loss else None)
         run_case({"kernel": "K3", "mode": name, "points": n},
                  lambda: ek.proj_launch(g1, op, ins, vm),
                  lambda g, t: proj_direct(op, ins, vm, g, t),
@@ -279,7 +282,7 @@ def main() -> int:
     edges = [(160, p) for p in ("all changed", "all invalid",
                                 "save-prefix on step 0")]
     if args.loss:
-        k4 = sorted({(L, k, proj_q, "smoke") for ph in PROOFS
+        k4 = sorted({(L, k, proj_q, "smoke") for ph in proofs
                      for proj_q, L, k in launches[ph][1]})
     else:
         k4 = [(L, K, proj_q, p) for L, p in
@@ -298,7 +301,7 @@ def main() -> int:
                   + 6 * 16 * L) * 8
         name = "K4 fold projective" if proj_q else "K4 fold level 0"
         counts = ({ph: launches[ph][1].get((proj_q, L, k), 0)
-                   for ph in PROOFS} if args.loss else None)
+                   for ph in proofs} if args.loss else None)
         run_case({"kernel": "K4", "mode": name, "L": L, "K": k,
                   "flags": pattern},
                  lambda: ek.fold_launch(g1, qk, fl, k, proj_q),

@@ -200,13 +200,21 @@ def _msm_case(specs, n, seed):
     return jspec, tspec_, pts, s, expect
 
 
-@pytest.mark.parametrize("specs,n", [(G1, 50), (G1, 200), (G1, 1024),
-                                     (G2, 200)],
-                         ids=["g1-50", "g1-200", "g1-1024", "g2-200"])
-def test_msm_matches_host(specs, n):
+@pytest.mark.parametrize("specs,n,chunk", [(G1, 50, None), (G1, 200, None),
+                                           (G1, 1024, None), (G2, 200, None),
+                                           (G2, 200, 100)],
+                         ids=["g1-50", "g1-200", "g1-1024", "g2-200",
+                              "g2-200-chunk100"])
+def test_msm_matches_host(specs, n, chunk):
+    """msm() against the JAX package's host curve: [sum s_i k_i]G, one
+    unchunked scalar multiple. With `chunk`, the path of every 2^20 G2 MSM
+    (Pippenger passes of `chunk` points, here two, joined by a complete
+    add); g2-200 proves the same points and scalars in one pass. The JAX
+    package's device `msm` of 200 G2 points compiles for minutes on the
+    CPU, so the host curve stands for it."""
     jspec, tspec_, pts, s, expect = _msm_case(specs, n, 20 + n)
     _, tP = _both(jspec, pts)
-    out = msm.msm(tspec_, tP, limbs_from_numpy(s))
+    out = msm.msm(tspec_, tP, limbs_from_numpy(s), chunk=chunk)
     assert ec.decode_points(tspec_, tuple(x[None] for x in out))[0] == expect
 
 
