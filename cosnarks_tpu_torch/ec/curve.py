@@ -19,6 +19,7 @@ import torch
 
 from ..ff.bigint import LIMB_BITS
 from ..ff.spec import Field
+from ..utils import timing
 from .ops import FqOps
 
 
@@ -129,7 +130,9 @@ def _add_formula(o, P, Q):
     cancel = h_zero & ~r_zero & finite  # P = -Q
 
     res = (X3, Y3, o.select(cancel, o.zeros_like(Z3), Z3))
-    if bool(same.any()):
+    with timing.blocking("curve.add_same"):
+        any_same = bool(same.any())
+    if any_same:
         res = _select(o, same, _double_formula(o, P), res)
     res = _select(o, p_inf, Q, res)
     res = _select(o, q_inf, P, res)
@@ -165,7 +168,9 @@ def _madd_formula(o, P, Q_affine, valid=None):
     same = h_zero & r_zero & ~p_inf
     cancel = h_zero & ~r_zero & ~p_inf
     res = (X3, Y3, o.select(cancel, o.zeros_like(Z3), Z3))
-    if bool(same.any()):
+    with timing.blocking("curve.madd_same"):
+        any_same = bool(same.any())
+    if any_same:
         res = _select(o, same, _double_formula(o, P), res)
     res = _select(o, p_inf, (X2, Y2, o.one_like(Z1)), res)
     if valid is not None:
@@ -421,12 +426,13 @@ def encode_points(spec: CurveSpec, affine_points, device=None):
             o.encode(zs, device=device))
 
 
-def decode_points(spec: CurveSpec, P):
-    """Jacobian point tensors -> host affine [(x, y) | None]; host inv."""
+def decode_points(spec: CurveSpec, P, site: str = "ec.decode_points"):
+    """Jacobian point tensors -> host affine [(x, y) | None]; host inv.
+    Each coordinate's copy to the host is counted under `site`."""
     o = spec.ops
-    xs = o.decode(P[0])
-    ys = o.decode(P[1])
-    zs = o.decode(P[2])
+    xs = o.decode(P[0], site=site)
+    ys = o.decode(P[1], site=site)
+    zs = o.decode(P[2], site=site)
     from . import host
 
     hc = host.host_curve(spec)

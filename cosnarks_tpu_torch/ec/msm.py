@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from ..ff.bigint import LIMB_BITS
+from ..utils import timing
 from . import curve as ec
 from .curve import CurveSpec
 
@@ -112,10 +113,12 @@ def _window_buckets(spec: CurveSpec, pts, scalars_std, c: int):
     B = (1 << (c - 1)) + 1  # buckets 0..2^(c-1)
     inf_in = o.is_zero(Z)
 
-    digits = signed_digits(spec, scalars_std, c)  # (nwin, N)
+    with timing.span("msm.digits"):
+        digits = signed_digits(spec, scalars_std, c)  # (nwin, N)
     nwin = digits.shape[0]
-    order, sortedb, sorted_sign, sorted_inf = _sort_by_bucket(
-        digits.abs(), digits < 0, inf_in, c, N)
+    with timing.span("msm.sort"):
+        order, sortedb, sorted_sign, sorted_inf = _sort_by_bucket(
+            digits.abs(), digits < 0, inf_in, c, N)
     acc = _bucket_accumulate(spec, order, sortedb, sorted_sign, sorted_inf,
                              X, Y, B, nwin)
     return tuple(x[:, 1:] for x in acc)
@@ -123,9 +126,13 @@ def _window_buckets(spec: CurveSpec, pts, scalars_std, c: int):
 
 def _pippenger_signed(spec: CurveSpec, pts, scalars_std, c: int):
     """Full MSM: window buckets -> weighted reduction -> Horner."""
-    wsums = _weighted_bucket_sum(
-        spec, _window_buckets(spec, pts, scalars_std, c))  # (nwin,)
-    return ec.proj_to_jacobian(spec, _horner_combine(spec, wsums, c))
+    buckets = _window_buckets(spec, pts, scalars_std, c)
+    with timing.span("msm.reduce"):
+        wsums = _weighted_bucket_sum(spec, buckets)  # (nwin,)
+    del buckets  # free before the combine, as an argument would be
+    with timing.span("msm.combine"):
+        acc = _horner_combine(spec, wsums, c)
+    return ec.proj_to_jacobian(spec, acc)
 
 
 def _pippenger_wsums(spec: CurveSpec, pts, scalars_std, c: int):
@@ -312,8 +319,10 @@ def _bucket_bounds(sortedb, B: int):
     the same counts with a one-hot matmul)."""
     nwin, N = sortedb.shape
     offs = torch.arange(nwin, device=sortedb.device)[:, None] * (B + 1)
-    counts = torch.bincount((sortedb + offs).reshape(-1),
-                            minlength=nwin * (B + 1))
+    # a card's bincount waits twice, for the ids' least and largest
+    with timing.blocking("msm.bucket_bounds", syncs=2):
+        counts = torch.bincount((sortedb + offs).reshape(-1),
+                                minlength=nwin * (B + 1))
     counts = counts.reshape(nwin, B + 1)[:, :B]
     starts = torch.cumsum(counts, dim=1) - counts
     return starts, starts + counts
@@ -367,14 +376,17 @@ def _bucket_accumulate(spec: CurveSpec, order, sortedb, sorted_sign,
     level — through the projective fold while a window spans more than one
     chunk (G1), then `_fold_levels_xla`."""
     K = CHUNK_K
-    state0 = _level0_accumulate(spec, order, sortedb, sorted_sign,
-                                sorted_inf, X, Y, B, nwin)
+    with timing.span("msm.level0"):
+        state0 = _level0_accumulate(spec, order, sortedb, sorted_sign,
+                                    sorted_inf, X, Y, B, nwin)
     keys, vals, buckets = state0["keys"], state0["vals"], state0["buckets"]
     if spec.ops.coord_ndim == 1:
         while -(-keys.shape[1] // K) > 1:
-            keys, vals, buckets = _fold_level_mega(spec, keys, vals, buckets,
-                                                   B, nwin, K)
-    return _fold_levels_xla(spec, keys, vals, buckets, B, nwin)
+            with timing.span("msm.fold"):
+                keys, vals, buckets = _fold_level_mega(
+                    spec, keys, vals, buckets, B, nwin, K)
+    with timing.span("msm.fold_tail"):
+        return _fold_levels_xla(spec, keys, vals, buckets, B, nwin)
 
 
 def _fold_level_mega(spec: CurveSpec, keys, vals, buckets, B: int,
@@ -531,18 +543,19 @@ def msm(spec: CurveSpec, points, scalars_std, c: int | None = None,
     {0, 1}) with standard-form scalar limbs (N, nlimbs). Returns one
     Jacobian point. `chunk` bounds the points per Pippenger pass (G2
     default 2^18); chunks combine with complete adds."""
-    N = points[0].shape[0]
-    if N <= 64:
-        return _msm_small(spec, points, scalars_std)
-    if chunk is None and spec.ops.coord_ndim > 1:
-        chunk = 1 << 18
-    if chunk is not None and N > chunk:
-        acc = None
-        for lo in range(0, N, chunk):
-            part = msm(spec, tuple(x[lo:lo + chunk] for x in points),
-                       scalars_std[lo:lo + chunk], c=c, chunk=None)
-            acc = part if acc is None else ec.add(spec, acc, part)
-        return acc
-    if c is None:
-        c = default_window(N)
-    return _pippenger_signed(spec, points, scalars_std, c)
+    with timing.span("msm"):
+        N = points[0].shape[0]
+        if N <= 64:
+            return _msm_small(spec, points, scalars_std)
+        if chunk is None and spec.ops.coord_ndim > 1:
+            chunk = 1 << 18
+        if chunk is not None and N > chunk:
+            acc = None
+            for lo in range(0, N, chunk):
+                part = msm(spec, tuple(x[lo:lo + chunk] for x in points),
+                           scalars_std[lo:lo + chunk], c=c, chunk=None)
+                acc = part if acc is None else ec.add(spec, acc, part)
+            return acc
+        if c is None:
+            c = default_window(N)
+        return _pippenger_signed(spec, points, scalars_std, c)

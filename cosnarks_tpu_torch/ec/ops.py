@@ -76,8 +76,8 @@ class FqOps:
     def encode(self, values, device=None):
         return mont.encode(self.field, values, device=device)
 
-    def decode(self, arr):
-        return mont.decode(self.field, arr)
+    def decode(self, arr, site: str = "mont.decode"):
+        return mont.decode(self.field, arr, site=site)
 
     def __hash__(self):
         return hash((type(self).__name__, self.field))
@@ -192,8 +192,9 @@ class Fq2Ops:
         arr = mont.encode(self.field, flat, device=device)
         return arr.reshape(len(values), 2, self.field.nlimbs)
 
-    def decode(self, arr):
-        ints = mont.decode(self.field, arr.reshape(-1, self.field.nlimbs))
+    def decode(self, arr, site: str = "mont.decode"):
+        ints = mont.decode(self.field, arr.reshape(-1, self.field.nlimbs),
+                           site=site)
         return [(ints[i], ints[i + 1]) for i in range(0, len(ints), 2)]
 
     def __hash__(self):

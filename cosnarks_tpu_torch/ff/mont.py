@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from .. import resolve_device
+from ..utils import timing
 from .bigint import LIMB_BITS, LIMB_MASK, int_to_limbs, ints_to_limbs, limbs_to_ints
 from .spec import Field
 
@@ -99,7 +100,9 @@ def carry(t: torch.Tensor, passes: int = 0) -> torch.Tensor:
         t = _pass(t)
     while True:
         hi = (t >> LIMB_BITS)[..., :-1]
-        if not bool(hi.any()):
+        with timing.blocking("mont.carry"):
+            done = not bool(hi.any())
+        if done:
             return t & MASK
         t = (t & MASK) + torch.nn.functional.pad(hi, (1, 0))
 
@@ -325,8 +328,10 @@ def broadcast_one(field: Field, shape=(), device=None):
 def constant(field: Field, value: int, shape=(), device=None):
     """Embed a python int as a (broadcast) Montgomery-form constant."""
     m = field.to_mont_int(value % field.p)
-    limbs = torch.as_tensor(int_to_limbs(m, field.nlimbs).astype(np.int64),
-                            device=resolve_device(device))
+    with timing.blocking("mont.constant"):
+        limbs = torch.as_tensor(
+            int_to_limbs(m, field.nlimbs).astype(np.int64),
+            device=resolve_device(device))
     return limbs.expand(tuple(shape) + (field.nlimbs,))
 
 
@@ -340,12 +345,17 @@ def encode(field: Field, values, mont: bool = True, device=None):
     if mont:
         vals = [field.to_mont_int(v) for v in vals]
     arr = ints_to_limbs(vals, field.nlimbs).astype(np.int64)
-    return torch.as_tensor(arr, device=resolve_device(device))
+    with timing.blocking("mont.encode"):
+        return torch.as_tensor(arr, device=resolve_device(device))
 
 
-def decode(field: Field, arr, mont: bool = True) -> list[int]:
-    """Limb tensor -> python ints (converting out of Montgomery form)."""
-    ints = limbs_to_ints(arr.detach().cpu().numpy())
+def decode(field: Field, arr, mont: bool = True,
+           site: str = "mont.decode") -> list[int]:
+    """Limb tensor -> python ints (converting out of Montgomery form). The
+    copy to the host is a host-blocking point, counted under `site`."""
+    with timing.blocking(site):
+        host = arr.detach().cpu().numpy()
+    ints = limbs_to_ints(host)
     if mont:
         ints = [field.from_mont_int(v) for v in ints]
     return ints

@@ -28,8 +28,9 @@ that the kernel makes, so a CPU test can check that it covers every element
 once.
 
 Dispatch: CPU tensors take `mul_plain`; CUDA tensors launch the kernel or
-raise. `mul.launches[(words, 0)]` counts launches at each width and
-`mul.sizes` their batch sizes (see `count`).
+raise. `mul.launches[(words, 0)]` counts launches at each width,
+`mul.sizes` their batch sizes by power of two and `mul.shapes` by exact
+product count, `((words, 0), products)` (see `count`).
 """
 
 from __future__ import annotations
@@ -198,9 +199,10 @@ def mul(field: Field, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         launch(lib.cosnarks_mont_mul, ptr(a), ptr(b), ptr(out),
                ctypes.c_int64(total), ctypes.c_int(tile),
                ctypes.c_int(blocks), field_params(field))
-    count(mul, (words, 0), total)
+    count(mul, (words, 0), total, shape=(total,))
     return out
 
 
 mul.launches = {}
 mul.sizes = {}
+mul.shapes = {}

@@ -93,7 +93,9 @@ def prove_parties(zkey, w, device, proves: int = 2) -> list[dict]:
     party's turn) marks each prove's kernel launches and peak device bytes.
     Raises unless every party returns the same proof; one dict a prove:
     proof, verified, prove_wall_s (the slowest party's seconds, as the JAX
-    script counts them), prove_s_by_party, phase_seconds_by_party,
+    script counts them), prove_s_by_party, phase_seconds_by_party (each
+    party's `prove(timings=)`: the phases' self seconds, the party's own
+    with its turn held, and its turn waits inside them under "turn_wait"),
     peak_device_bytes, launches_by_mode."""
     n_inst = zkey.n_public + 1
     shares = rep3.share_field_elements(zkey.fr, w[n_inst:],

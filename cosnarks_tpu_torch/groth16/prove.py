@@ -9,7 +9,6 @@ Witness map -> 5 MSMs over additive half-shares -> 2 communication rounds
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -19,6 +18,7 @@ from ..ec import host
 from ..ec.curves import BN254_G1, BN254_G2, BLS12_381_G1, BLS12_381_G2
 from ..ff.spec import BN254_FR
 from ..io.zkey import Groth16Zkey, g1_to_ints, g2_to_ints
+from ..utils import timing
 from . import drivers as drv
 from .witness_map import witness_map
 
@@ -40,10 +40,12 @@ def curve_specs_for(zkey: Groth16Zkey):
 def _load_array(spec, arr: np.ndarray, device):
     """(N, 2, ...) zkey Montgomery limbs -> Jacobian points on `device`
     (all-zero rows are infinity)."""
-    t = torch.as_tensor(arr.astype(np.int64), device=device)
+    with timing.blocking("groth16.load_points", syncs=2):
+        t = torch.as_tensor(arr.astype(np.int64), device=device)
+        inf = torch.as_tensor(
+            np.all(arr.reshape(arr.shape[0], -1) == 0, axis=1),
+            device=device)
     X, Y = t[:, 0], t[:, 1]
-    inf = torch.as_tensor(np.all(arr.reshape(arr.shape[0], -1) == 0, axis=1),
-                          device=device)
     n = arr.shape[0]
     one = spec.ops.one((n,), device=device)
     Z = spec.ops.select(inf, spec.ops.zeros((n,), device=device), one)
@@ -61,7 +63,8 @@ def load_g2_array(spec, arr: np.ndarray, device):
 
 
 def _point_to_host(spec, pt):
-    return ec.decode_points(spec, tuple(x[None] for x in pt))[0]
+    return ec.decode_points(spec, tuple(x[None] for x in pt),
+                            site="groth16.proof")[0]
 
 
 def _combine_public(driver, spec, res, query0, vk_param, pub_pts, pub_vals):
@@ -78,26 +81,37 @@ def _combine_public(driver, spec, res, query0, vk_param, pub_pts, pub_vals):
 
 
 class _Clock:
-    """Per-phase wall seconds (synchronising the device) when asked for."""
+    """The prover's phases as spans `prove.<phase>` (`timing.Timer`), one
+    after another from the clock's start. With a `timings` dict, each
+    phase's self seconds (the party's own, its turn held) add to
+    timings[phase] and the rest, the party's turn waits, to
+    timings["turn_wait"]; only then is the device synchronised at each
+    phase's end. Without one, the spans are made while `timing` records."""
 
     def __init__(self, timings, device):
         self.timings = timings
         self.device = device
-        self.t = self._now()
+        self.timer = self._start()
 
-    def _now(self):
-        if self.timings is None:
-            return 0.0
-        if self.device.type == "cuda":
+    def _start(self):
+        if self.timings is None and not timing.on():
+            return None
+        if self.timings is not None and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
-        return time.perf_counter()
+        return timing.Timer()
 
     def lap(self, name):
-        if self.timings is None:
+        if self.timer is None:  # neither timed nor recorded so far
+            self.timer = self._start()
             return
-        now = self._now()
-        self.timings[name] = self.timings.get(name, 0.0) + now - self.t
-        self.t = now
+        if self.timings is not None and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        dur, own = self.timer.stop("prove." + name)
+        if self.timings is not None:
+            t = self.timings
+            t[name] = t.get(name, 0.0) + own * 1e-9
+            t["turn_wait"] = t.get("turn_wait", 0.0) + (dur - own) * 1e-9
+        self.timer = timing.Timer()
 
 
 def prove(driver, zkey: Groth16Zkey, witness: SharedWitness,
@@ -107,7 +121,10 @@ def prove(driver, zkey: Groth16Zkey, witness: SharedWitness,
     Rounds (Rep3; PRF setup done in driver.state):
       1. open(A) and reshare+[r]*B_g1
       2. open(C) and open(B_g2)
-    `timings`, when given, receives per-phase wall seconds."""
+    `timings`, when given, receives each phase's self seconds (witness_map,
+    g1_msm, g2_msm, rounds: the party's own, with its turn held) and under
+    "turn_wait" the seconds the party waited for its turn inside them;
+    together they are the call's wall time."""
     fr = zkey.fr
     fq = zkey.fq
     g1, g2 = curve_specs_for(zkey)
@@ -195,12 +212,15 @@ def prove(driver, zkey: Groth16Zkey, witness: SharedWitness,
     # round 2: open C and B_g2
     g_c_opened = driver.open_half_point(g1, g_c)
     g2_b_opened = driver.open_half_point(g2, g2_b)
+    a = _point_to_host(g1, g_a_opened)
+    b = _point_to_host(g2, g2_b_opened)
+    c = _point_to_host(g1, g_c_opened)
     clock.lap("rounds")
 
     return {
-        "a": _point_to_host(g1, g_a_opened),
-        "b": _point_to_host(g2, g2_b_opened),
-        "c": _point_to_host(g1, g_c_opened),
+        "a": a,
+        "b": b,
+        "c": c,
         "protocol": "groth16",
         "curve": "bn128" if fr is BN254_FR else "bls12381",
     }

@@ -82,7 +82,8 @@ def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher, drv,
     polynomials come shared in `shared_witness` (host shares or the
     driver's device shares). The CRS must be on the driver's
     device (a host CRS counts as the CPU). `timings`, when given, receives the
-    seconds of oink, sumcheck, gemini, shplonk and kzg."""
+    self seconds of oink, sumcheck, gemini, shplonk and kzg, and the
+    party's turn waits inside them under "turn_wait"."""
     n = pk.circuit_size
     dev = drv.device
     polyops.check_crs_device(crs, dev)

@@ -560,8 +560,9 @@ def prove(pk: ProvingKey, vk, crs, hasher, device=None,
     inputs), with the pairing-point accumulator left inside the proof.
     Runs on the proving key's device when its polynomials are tensors,
     else on `device`; the CRS must be on that device (a host CRS counts as
-    the CPU), or it raises. `timings`, when given, receives the seconds of oink,
-    sumcheck, gemini, shplonk and kzg (synchronising the device)."""
+    the CPU), or it raises. `timings`, when given, receives the self seconds
+    of oink, sumcheck, gemini, shplonk and kzg and under "turn_wait" the
+    turn waits inside them (synchronising the device; `_Clock`)."""
     dev = pk.device if pk.device is not None else resolve_device(device)
     polyops.check_crs_device(crs, dev)
     clock = _Clock(timings, dev)

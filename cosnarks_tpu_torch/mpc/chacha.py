@@ -16,6 +16,8 @@ import hashlib
 import numpy as np
 import torch
 
+from ..utils import timing
+
 _CONST = [0x61707865, 0x3320646E, 0x79622D32, 0x6B206574]
 M32 = 0xFFFFFFFF
 
@@ -55,8 +57,9 @@ def blocks(key_words, nonce, n_blocks: int):
     64-bit ChaCha block counter enumerates the batch."""
     dev = key_words.device
     idx = torch.arange(n_blocks, dtype=torch.int64, device=dev)
-    a0 = torch.tensor(_CONST, dtype=torch.int64, device=dev).expand(
-        n_blocks, 4)
+    with timing.blocking("chacha.blocks"):
+        a0 = torch.tensor(_CONST, dtype=torch.int64, device=dev).expand(
+            n_blocks, 4)
     b0 = key_words[:4].expand(n_blocks, 4)
     c0 = key_words[4:].expand(n_blocks, 4)
     d0 = torch.stack([idx, torch.zeros_like(idx),

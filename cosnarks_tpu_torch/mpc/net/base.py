@@ -12,6 +12,7 @@ import abc
 import contextlib
 import threading
 
+from ...utils import timing
 from . import wire
 
 
@@ -65,9 +66,16 @@ class Network(abc.ABC):
         return getattr(self, "_stats", {})
 
     def _count(self, peer: int, nbytes: int, sent: bool):
-        st = self.__dict__.setdefault("_stats", {})
-        key = (peer, "sent" if sent else "recv")
-        st[key] = st.get(key, 0) + nbytes
+        """Add a message of `nbytes` to this party's counters for `peer`:
+        bytes under (peer, "sent" | "recv"), messages under (peer,
+        "sent_msgs" | "recv_msgs"). Safe from a party's concurrent
+        threads."""
+        with _stats_lock:
+            st = self.__dict__.setdefault("_stats", {})
+            way = "sent" if sent else "recv"
+            st[(peer, way)] = st.get((peer, way), 0) + nbytes
+            key = (peer, way + "_msgs")
+            st[key] = st.get(key, 0) + 1
 
 
 class ChannelView(Network):
@@ -87,7 +95,8 @@ class ChannelView(Network):
         return self._net.recv(frm, chan=self._chan)
 
 
-_party = threading.local()  # .turn: the Turn of the party a thread works for
+_stats_lock = threading.Lock()
+_party = timing.thread_state  # .turn: the Turn of the party a thread works for
 
 
 class Turn:
@@ -99,13 +108,20 @@ class Turn:
     becomes runnable and gives it back when its last runnable thread
     blocks. So the threads that `join` starts for concurrent rounds compute
     under their party's turn, and the party hands over only once all of
-    them wait."""
+    them wait.
 
-    def __init__(self, shared: threading.Lock):
+    Each hold, from taking the shared lock to giving it back, is an
+    `mpc.turn` span of the party (`timing`), and `held_ns` counts the
+    party's time holding it, from which spans take their self time."""
+
+    def __init__(self, shared: threading.Lock, party: int | None = None):
         self._shared = shared
+        self.party = party
         self._cond = threading.Condition()
         self._runnable = 0
         self._held = False
+        self._held_total = 0  # ns of the holds before the current one
+        self._since = 0  # start of the current hold
 
     def _enter(self):
         with self._cond:
@@ -115,6 +131,7 @@ class Turn:
                 return
         self._shared.acquire()
         with self._cond:
+            self._since = timing.now_ns()
             self._held = True
             self._cond.notify_all()
 
@@ -126,7 +143,20 @@ class Turn:
             if self._runnable:
                 return
             self._held = False
+            end = timing.now_ns()
+            self._held_total += end - self._since
+            if timing.on():
+                timing.file_span("mpc.turn", self.party, self._since, end,
+                                 end - self._since)
         self._shared.release()
+
+    def held_ns(self, at: int) -> int:
+        """Nanoseconds the party has held the turn up to `at` (a
+        `timing.now_ns()` stamp)."""
+        with self._cond:
+            if self._held:
+                return self._held_total + max(0, at - self._since)
+            return self._held_total
 
     @contextlib.contextmanager
     def runnable(self):

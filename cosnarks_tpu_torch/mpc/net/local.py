@@ -17,6 +17,7 @@ from __future__ import annotations
 import queue
 import threading
 
+from . import wire
 from .base import Network, Turn
 
 
@@ -43,20 +44,25 @@ class LocalNetwork(Network):
             for _ in range(N_CHANNELS)
         ]
         shared = threading.Lock()
-        return [cls(i, n_parties, mailboxes, Turn(shared), timeout)
+        return [cls(i, n_parties, mailboxes, Turn(shared, party=i), timeout)
                 for i in range(n_parties)]
 
     def send(self, to: int, msg, chan: int = 0) -> None:
+        """Pass `msg` by reference, counted in `stats()` at the size the
+        socket transports put on the wire (`wire.encoded_size`)."""
+        self._count(to, wire.encoded_size(msg), sent=True)
         self._mailboxes[chan][to][self.id].put(msg)
 
     def recv(self, frm: int, chan: int = 0):
         box = self._mailboxes[chan][self.id][frm]
         try:
             with self.turn.blocked():
-                return box.get(timeout=self._timeout)
+                msg = box.get(timeout=self._timeout)
         except queue.Empty:
             raise TimeoutError(
                 f"party {self.id}: recv from {frm} timed out (deadlock?)")
+        self._count(frm, wire.encoded_size(msg), sent=False)
+        return msg
 
 
 def run_parties(fns, n_parties: int | None = None, timeout: float = 3600.0):

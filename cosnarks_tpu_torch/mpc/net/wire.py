@@ -97,6 +97,45 @@ def _enc(obj, out: list):
         raise WireError(f"cannot serialize {type(obj)} for the wire")
 
 
+_TORCH_DTYPES = {getattr(torch, d.name) for d in _DTYPES
+                 if hasattr(torch, d.name)}
+
+
+def encoded_size(obj) -> int:
+    """len(encode(obj)), counted from the message's types and shapes: a
+    device tensor is not copied to the host."""
+    if obj is None:
+        return 1
+    if isinstance(obj, bool):
+        return 2
+    if isinstance(obj, int):
+        return 6 + ((abs(obj).bit_length() + 7) // 8 or 1)
+    if isinstance(obj, (bytes, bytearray, memoryview)):
+        return 5 + memoryview(obj).nbytes
+    if isinstance(obj, str):
+        return 5 + len(obj.encode("utf-8"))
+    if isinstance(obj, torch.Tensor):
+        if obj.dtype not in _TORCH_DTYPES:
+            raise WireError(f"dtype {obj.dtype} not on wire whitelist")
+        # encode's np.ascontiguousarray makes a 0-d array 1-d
+        return (3 + 4 * max(obj.dim(), 1)
+                + obj.numel() * obj.element_size())
+    if isinstance(obj, (np.ndarray, np.generic)):
+        arr = np.asarray(obj)
+        if arr.dtype not in _DTYPE_CODE:
+            raise WireError(f"dtype {arr.dtype} not on wire whitelist")
+        return 3 + 4 * max(arr.ndim, 1) + arr.nbytes
+    if isinstance(obj, (list, tuple)):
+        return 5 + sum(encoded_size(x) for x in obj)
+    if isinstance(obj, dict):
+        for k in obj:
+            if not isinstance(k, (str, int)):
+                raise WireError("dict keys must be str or int on the wire")
+        return 5 + sum(encoded_size(k) + encoded_size(v)
+                       for k, v in obj.items())
+    raise WireError(f"cannot serialize {type(obj)} for the wire")
+
+
 def _need(data: bytes, pos: int, n: int) -> int:
     if pos + n > len(data):
         raise WireError("truncated frame")

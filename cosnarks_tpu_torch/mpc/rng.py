@@ -18,6 +18,7 @@ import torch
 from .. import resolve_device
 from ..ff import mont
 from ..ff.spec import Field
+from ..utils import timing
 from . import chacha
 
 # stream labels (nonce word 0); one label per draw "kind"
@@ -49,10 +50,11 @@ class PartyRng:
         self.device = resolve_device(device)
         self.key_bytes_mine = key_mine
         self.key_bytes_next = key_next
-        self.key_mine = torch.as_tensor(chacha.key_to_words(key_mine),
-                                        device=self.device)
-        self.key_next = torch.as_tensor(chacha.key_to_words(key_next),
-                                        device=self.device)
+        with timing.blocking("rng.keys", syncs=2):
+            self.key_mine = torch.as_tensor(chacha.key_to_words(key_mine),
+                                            device=self.device)
+            self.key_next = torch.as_tensor(chacha.key_to_words(key_next),
+                                            device=self.device)
         self._counter = counter
 
     @classmethod

@@ -33,10 +33,11 @@ def _msm(spec, points, coeffs_mont):
 
 
 def _to_host(spec, pts):
-    """Stacked or single Jacobian point(s) -> host affine list."""
+    """Stacked or single Jacobian point(s) -> host affine list, for the
+    transcript."""
     if pts[0].dim() == spec.ops.coord_ndim:
         pts = tuple(x[None] for x in pts)
-    return ec.decode_points(spec, pts)
+    return ec.decode_points(spec, pts, site="plonk.transcript")
 
 
 class PlainPlonkDriver:

@@ -30,6 +30,7 @@ from ..io.zkey import PlonkZkey, g1_to_ints
 from ..mpc import rep3
 from ..mpc.net.base import join
 from ..poly.ntt import groth16_domain
+from ..utils import timing
 from ..utils.keccak import keccak256
 
 
@@ -139,7 +140,7 @@ def _eval_share_poly(drv, field, poly, x_int: int):
 def _eval_public_poly(field, coeffs, x_int: int) -> int:
     pw = _powers_mont(field, x_int, coeffs.shape[0], coeffs.device)
     s = _mont_sum(field, mont.mul(field, coeffs, pw))
-    return mont.decode(field, s[None])[0]
+    return mont.decode(field, s[None], site="plonk.public_eval")[0]
 
 
 def _array_prod_mul(drv, field, invert: bool, v1, v2, v3):
@@ -212,7 +213,8 @@ class _Public:
 
     def __init__(self, zk: PlonkZkey, spec, device):
         def dev(a):
-            return torch.as_tensor(a.astype(np.int64), device=device)
+            with timing.blocking("plonk.public"):
+                return torch.as_tensor(a.astype(np.int64), device=device)
 
         for name in ("qm", "ql", "qr", "qo", "qc", "s1", "s2", "s3"):
             coeffs, evals = getattr(zk, name)
@@ -231,7 +233,9 @@ def prove(zk: PlonkZkey, drv, public_ints: list[int], witness_share,
 
     deterministic_b: b_i = i (reference Round1Challenges::deterministic,
     round1.rs:89-99), a test hook for KAT parity. `timings`, when given,
-    receives per-round wall seconds (synchronising the device)."""
+    receives each round's self seconds (the party's own, its turn held)
+    and under "turn_wait" its turn waits inside them (synchronising the
+    device; `groth16.prove._Clock`)."""
     fr, fq = zk.fr, zk.fq
     spec = _curve_for(zk)
     dev = drv.device
@@ -266,10 +270,10 @@ def prove(zk: PlonkZkey, drv, public_ints: list[int], witness_share,
             wave = ~done & (zk.add_a < avail) & (zk.add_b < avail)
             if not wave.any():
                 raise ValueError("cyclic additions in plonk zkey")
-            ia = torch.as_tensor(zk.add_a[wave].astype(np.int64), device=dev)
-            ib = torch.as_tensor(zk.add_b[wave].astype(np.int64), device=dev)
-            ca = torch.as_tensor(zk.add_ca[wave].astype(np.int64), device=dev)
-            cb = torch.as_tensor(zk.add_cb[wave].astype(np.int64), device=dev)
+            with timing.blocking("plonk.additions", syncs=4):
+                ia, ib, ca, cb = (
+                    torch.as_tensor(v[wave].astype(np.int64), device=dev)
+                    for v in (zk.add_a, zk.add_b, zk.add_ca, zk.add_cb))
             wa = _zipc(lambda a: a.index_select(0, ia), full)
             wb = _zipc(lambda a: a.index_select(0, ib), full)
             term = drv.add(drv.mul_public(wa, ca), drv.mul_public(wb, cb))
@@ -288,7 +292,8 @@ def prove(zk: PlonkZkey, drv, public_ints: list[int], witness_share,
 
     # ---- Round 1 ---------------------------------------------------------
     def wire_poly(wire_map, blind0, blind1):
-        idx = torch.as_tensor(wire_map.astype(np.int64), device=dev)
+        with timing.blocking("plonk.wire_map"):
+            idx = torch.as_tensor(wire_map.astype(np.int64), device=dev)
         buf = _zipc(lambda a: a.index_select(0, idx), full)
         pad = n - len(wire_map)
         if pad:
@@ -574,7 +579,7 @@ def prove(zk: PlonkZkey, drv, public_ints: list[int], witness_share,
         _eval_share_poly(drv, fr, poly_c, xi),
         _eval_share_poly(drv, fr, z_poly, xiw),
     ])
-    opened = mont.decode(fr, drv.open_many(evals))
+    opened = mont.decode(fr, drv.open_many(evals), site="plonk.open")
     eval_a, eval_b, eval_c, eval_zw = [int(v) for v in opened]
     eval_s1 = _eval_public_poly(fr, pub.s1[0], xi)
     eval_s2 = _eval_public_poly(fr, pub.s2[0], xi)

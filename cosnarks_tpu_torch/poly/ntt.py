@@ -18,6 +18,7 @@ import torch
 from ..ff import mont
 from ..ff.bigint import ints_to_limbs
 from ..ff.spec import Field
+from ..utils import timing
 
 
 def _host_mont_limbs(field: Field, values: list[int]) -> np.ndarray:
@@ -129,7 +130,8 @@ def _fft(domain: Domain, x, inverse: bool):
     n = domain.size
     if x.shape[-2] != n:
         raise ValueError(f"expected axis -2 of size {n}, got {x.shape}")
-    perm = torch.as_tensor(_bit_reverse_perm(domain.k), device=x.device)
+    with timing.blocking("ntt.bit_reverse"):
+        perm = torch.as_tensor(_bit_reverse_perm(domain.k), device=x.device)
     x = x.index_select(-2, perm)
     tables = domain._stage_twiddles(inverse, x.device)
     lead = x.shape[:-2]

@@ -283,7 +283,8 @@ def test_plain_proof_matches_and_verifies(small_keys, flavor):
         convert.honk_proving_key_from_numpy(jk, device="cpu")
     timings = {}
     mine = prover.prove(key, vk, c, H, timings=timings)
-    assert set(timings) == {"oink", "sumcheck", "gemini", "shplonk", "kzg"}
+    assert set(timings) == {"oink", "sumcheck", "gemini", "shplonk", "kzg",
+                            "turn_wait"}
     assert mine == theirs
     assert len(mine[0]) == (410 if flavor == "poseidon2" else
                             59 + 11 * 7 + 8)
