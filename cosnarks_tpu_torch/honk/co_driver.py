@@ -33,6 +33,7 @@ from ..ec.host import host_curve
 from ..mpc import rep3
 from ..mpc.rep3 import Share
 from ..plonk.prove import scan
+from ..utils import timing
 from . import polyops
 from .polyops import FR
 
@@ -198,7 +199,7 @@ class Rep3HonkDriver:
         return Share(z, z)
 
     def open(self, x: Share) -> list[int]:
-        return polyops.decode(self.open_t(x))
+        return polyops.decode(self.open_t(x), "honk.open")
 
     def commit(self, poly: Share, crs):
         return self.commit_open(poly, crs)
@@ -239,7 +240,9 @@ class Rep3HonkDriver:
     def inv_vec(self, x: Share) -> Share:
         r = self.rand(x.a.shape[0])
         opened = self.mul_open(x, r)
-        if bool((opened == 0).all(-1).any()):
+        with timing.blocking("honk.inv_check"):
+            zero = bool((opened == 0).all(-1).any())
+        if zero:
             raise ZeroDivisionError("cannot invert zero share")
         return rep3.mul_public(FR, r, polyops.batch_invert(opened))
 
@@ -262,15 +265,16 @@ class Rep3HonkDriver:
         party commits to its additive component ('a') (`polyops.commit`:
         `msm()` on a device CRS), then the three affine points are
         exchanged and summed on the host (rep3 pointshare
-        open_half_point)."""
-        mine = polyops.commit(coeffs.a, crs)
-        others = self.net.broadcast(_encode_pt(mine))
-        self.rounds += 1
-        g1 = host_curve(curves.BN254_G1)
-        acc = g1.lift_affine(mine)
-        for enc in others.values():
-            acc = g1.add(acc, g1.lift_affine(_decode_pt(enc)))
-        return g1.affine_ints(acc) if acc is not None else None
+        open_half_point). Span `honk.commit`."""
+        with timing.span("honk.commit"):
+            mine = polyops.commit(coeffs.a, crs)
+            others = self.net.broadcast(_encode_pt(mine))
+            self.rounds += 1
+            g1 = host_curve(curves.BN254_G1)
+            acc = g1.lift_affine(mine)
+            for enc in others.values():
+                acc = g1.add(acc, g1.lift_affine(_decode_pt(enc)))
+            return g1.affine_ints(acc) if acc is not None else None
 
 
 def _encode_pt(pt):

@@ -29,9 +29,12 @@ driver's device, converted once at the prover's boundary.
 
 from __future__ import annotations
 
+import random
+
 import torch
 
 from ..mpc.rep3_scalar import AShare
+from ..utils import timing
 from . import polyops, prover, relations
 from .co_driver import Rep3HonkDriver
 from .polyops import R
@@ -45,19 +48,21 @@ SHARED_PK_ENTITIES = ("w_l", "w_r", "w_o", "w_4", "lookup_read_counts",
                       "lookup_read_tags")
 
 
-def share_proving_key(pk: ProvingKey, rng) -> list[dict]:
+def share_proving_key(pk: ProvingKey, rng=None) -> list[dict]:
     """Split the witness polynomials of a plain proving key into 3 Rep3
     share dicts of host AShares (the reference's SplitProvingKey flow,
-    co-noir/src/lib.rs split_proving_key_rep3)."""
-    from ..mpc.rep3_scalar import Rep3Scalar
-
+    co-noir/src/lib.rs split_proving_key_rep3). `rng` (a `random.Random`)
+    draws the shares; by default the system's randomness does."""
+    if rng is None:
+        rng = random.SystemRandom()
     per_party = [dict() for _ in range(3)]
     for name in SHARED_PK_ENTITIES:
         cols = [[], [], []]
         for v in pk.polynomials[name]:
-            shares = Rep3Scalar.share(int(v), R)
+            x0, x1 = rng.randrange(R), rng.randrange(R)
+            xs = [x0, x1, (int(v) - x0 - x1) % R]
             for k in range(3):
-                cols[k].append(shares[k])
+                cols[k].append(AShare(xs[k], xs[(k + 1) % 3]))
         for k in range(3):
             per_party[k][name] = cols[k]
     return per_party
@@ -115,13 +120,15 @@ def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher, drv,
     transcript.send_point("W_4", drv.commit_open(w4, crs))
 
     beta, gamma = transcript.get_challenges(["beta", "gamma"])
-    lookup_inverses = _co_logderiv_inverses(pub, sw, beta, gamma, drv)
+    with timing.span("honk.logderiv"):
+        lookup_inverses = _co_logderiv_inverses(pub, sw, beta, gamma, drv)
     transcript.send_point("LOOKUP_INVERSES",
                           drv.commit_open(lookup_inverses, crs))
 
     public_input_delta = prover.compute_public_input_delta(
         beta, gamma, pk.public_inputs, pk.pub_inputs_offset)
-    z_perm = _co_grand_product(pk, pub, sw, w4, beta, gamma, drv)
+    with timing.span("honk.grand_product"):
+        z_perm = _co_grand_product(pk, pub, sw, w4, beta, gamma, drv)
     transcript.send_point("Z_PERM", drv.commit_open(z_perm, crs))
 
     alpha = transcript.get_challenge("alpha")
@@ -139,10 +146,10 @@ def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher, drv,
     wit["lookup_inverses"] = lookup_inverses
     wit_stack = drv.lin(lambda *c: torch.stack(c),
                         *[wit[name] for name in WITNESS])
-    shift_idx = [WITNESS.index(s) for s in SHIFTED]
+    shift = prover.shifted_rows(WITNESS)
     shift_stack = drv.lin(
-        lambda t: torch.cat([t[shift_idx, 1:],
-                             torch.zeros_like(t[shift_idx, :1])], 1),
+        lambda t: torch.cat([t[shift, 1:], torch.zeros_like(t[shift, :1])],
+                            1),
         wit_stack)
     shared_names = WITNESS + tuple("shift_" + s for s in SHIFTED)
     tables = [
@@ -175,7 +182,7 @@ def co_prove(pk: ProvingKey, shared_witness: dict, vk, crs, hasher, drv,
         prover.batch_polys(drv, rho, wit_stack, start=npre),
         prover.batch_polys(prover.PlainOps(dev), rho, pub_stack))
     to_be_shifted = prover.batch_polys(
-        drv, rho, drv.lin(lambda t: t[shift_idx], wit_stack),
+        drv, rho, drv.lin(lambda t: t[shift], wit_stack),
         start=npre + len(WITNESS))
     prover.open_phases(drv, unshifted, to_be_shifted, challenges, log_n,
                        crs, transcript, clock)

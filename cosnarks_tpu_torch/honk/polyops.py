@@ -38,6 +38,7 @@ from ..ff import mont
 from ..ff.bigint import ints_to_limbs, limbs_to_ints
 from ..ff.spec import BN254_FR
 from ..plonk.prove import _powers_mont, scan
+from ..utils import timing
 
 FR = BN254_FR
 R = BN254_FR.p
@@ -138,16 +139,23 @@ def evaluate_univariate(evals: list[int], u: int, p: int = R) -> int:
 
 def encode(values, device=None) -> torch.Tensor:
     """Python ints -> (k, 16) Montgomery limbs on `device`: standard-form
-    limbs from one byte string, then one `to_mont` on the device."""
+    limbs from one byte string, then one `to_mont` on the device. The copy
+    from pageable host memory is a host-blocking point (`honk.encode`)."""
     dev = resolve_device(device)
     std = ints_to_limbs([int(v) % R for v in values], NLIMBS)
-    return mont.to_mont(FR, torch.as_tensor(std.astype(np.int64), device=dev))
+    with timing.blocking("honk.encode"):
+        t = torch.as_tensor(std.astype(np.int64), device=dev)
+    return mont.to_mont(FR, t)
 
 
-def decode(t: torch.Tensor) -> list[int]:
+def decode(t: torch.Tensor, site: str = "honk.decode") -> list[int]:
     """(k, 16) Montgomery limbs -> python ints (one `from_mont` on the
-    tensor's device, then one copy to the host)."""
-    return limbs_to_ints(mont.from_mont(FR, t).cpu().numpy())
+    tensor's device, then one copy to the host, a host-blocking point
+    counted under `site`)."""
+    std = mont.from_mont(FR, t)
+    with timing.blocking(site):
+        host = std.cpu().numpy()
+    return limbs_to_ints(host)
 
 
 @functools.lru_cache(maxsize=None)
@@ -253,7 +261,8 @@ def batch_invert(t) -> torch.Tensor:
 
     prefix = scan(mul_op, safe)
     suffix = scan(mul_op, safe, reverse=True)
-    total_inv = const(pow(decode(prefix[-1:])[0], -1, R), dev)
+    total = decode(prefix[-1:], "honk.batch_invert")[0]
+    total_inv = const(pow(total, -1, R), dev)
     before = torch.cat([const(1, dev), prefix[:-1]])
     after = torch.cat([suffix[1:], const(1, dev)])
     out = mul(mul(before, after), total_inv.expand(k, NLIMBS))
@@ -336,8 +345,8 @@ def commit_msm(coeffs, crs) -> tuple | None:
     k = t.shape[0]
     pts = tuple(x[:k] for x in crs.points)
     acc = msm_mod.msm(curves.BN254_G1, pts, mont.from_mont(FR, t))
-    return ec.decode_points(curves.BN254_G1,
-                            tuple(x[None] for x in acc))[0]
+    return ec.decode_points(curves.BN254_G1, tuple(x[None] for x in acc),
+                            site="honk.commit_decode")[0]
 
 
 def _host_pippenger(pts: list, scalars: list[int], c: int = 6):

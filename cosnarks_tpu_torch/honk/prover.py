@@ -32,6 +32,7 @@ import torch
 from .. import resolve_device
 from ..groth16.prove import _Clock
 from ..plonk.prove import scan
+from ..utils import timing
 from . import polyops, relations
 from .proving_key import PRECOMPUTED, PROVER_WITNESS, SHIFTED, WITNESS, \
     ProvingKey, device_polys
@@ -61,14 +62,26 @@ class PlainOps:
         return polyops.zeros(k, self.device)
 
     def open(self, vals) -> list[int]:
-        return polyops.decode(vals)
+        return polyops.decode(vals, "honk.open")
 
     def commit(self, poly, crs):
         return polyops.commit(poly, crs)
 
 
+def shifted_rows(names) -> slice:
+    """The SHIFTED entities' rows in a stack of `names`: one run, so a
+    slice (indexing by a list would copy it to the card and wait)."""
+    lo = names.index(SHIFTED[0])
+    assert tuple(names[lo:lo + len(SHIFTED)]) == SHIFTED
+    return slice(lo, lo + len(SHIFTED))
+
+
 def _idx(rows, device) -> torch.Tensor:
-    return torch.as_tensor(list(rows), dtype=torch.int64, device=device)
+    """Row indices as a tensor on `device`: a copy from pageable host
+    memory, a host-blocking point (`honk.rows`)."""
+    rows = list(rows)
+    with timing.blocking("honk.rows"):
+        return torch.as_tensor(rows, dtype=torch.int64, device=device)
 
 
 # -- oink -------------------------------------------------------------------
@@ -380,8 +393,9 @@ def sumcheck_prove(tables, params, alphas, gate_challenges, circuit_size,
         univariate = _compute_round_univariate(
             tables, params, alphas, scaling, pow_partial, gate_challenges[k],
             rs, skip=skip)
-        transcript.send_frs(f"Sumcheck:univariate_{k}",
-                            open_values(univariate))
+        with timing.span("honk.sumcheck.open"):
+            opened = open_values(univariate)
+        transcript.send_frs(f"Sumcheck:univariate_{k}", opened)
         u = transcript.get_challenge(f"Sumcheck:u_{k}")
         challenges.append(u)
         tables = [tab.fold(u) for tab in tables]
@@ -404,8 +418,11 @@ def compute_skip_set(pk: ProvingKey) -> frozenset:
         if sel is None:
             continue
         col = pk.polynomials[sel]
-        nonzero = (bool(col.any()) if isinstance(col, torch.Tensor)
-                   else any(col))
+        if isinstance(col, torch.Tensor):
+            with timing.blocking("honk.skip_set"):
+                nonzero = bool(col.any())
+        else:
+            nonzero = any(col)
         if not nonzero:
             skip.add(fam)
     return frozenset(skip)
@@ -576,9 +593,9 @@ def prove(pk: ProvingKey, vk, crs, hasher, device=None,
     gate_challenges = transcript.get_powers_of_challenge(
         "Sumcheck:gate_challenge", virtual_log_n)
 
-    shift_idx = [(PRECOMPUTED + WITNESS).index(s) for s in SHIFTED]
-    shifted = torch.cat([polys[shift_idx, 1:],
-                         torch.zeros_like(polys[shift_idx, :1])], 1)
+    shift = shifted_rows(PRECOMPUTED + WITNESS)
+    shifted = torch.cat([polys[shift, 1:],
+                         torch.zeros_like(polys[shift, :1])], 1)
     table = EntityTable(ENTITY_ORDER, [torch.cat([polys, shifted])], FV)
     challenges, evals = sumcheck_prove(
         [table], params, alphas, gate_challenges, pk.circuit_size,
@@ -591,7 +608,7 @@ def prove(pk: ProvingKey, vk, crs, hasher, device=None,
     rho = transcript.get_challenge("rho")
     n_unshifted = len(PRECOMPUTED + WITNESS)
     unshifted = batch_polys(ops, rho, polys)
-    to_be_shifted = batch_polys(ops, rho, polys[shift_idx],
+    to_be_shifted = batch_polys(ops, rho, polys[shift],
                                 start=n_unshifted)
     open_phases(ops, unshifted, to_be_shifted, challenges, log_n, crs,
                 transcript, clock)

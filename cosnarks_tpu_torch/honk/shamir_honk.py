@@ -45,6 +45,7 @@ from ..ec import curves
 from ..ec.host import host_curve
 from ..mpc import shamir
 from ..plonk.prove import scan
+from ..utils import timing
 from . import polyops
 from .co_driver import SVec, _decode_pt, _encode_pt
 from .polyops import FR, R
@@ -157,7 +158,7 @@ class ShamirHonkDriver:
         return polyops.zeros(k, self.device)
 
     def open(self, x) -> list[int]:
-        return polyops.decode(self.open_t(x))
+        return polyops.decode(self.open_t(x), "honk.open")
 
     def commit(self, poly, crs):
         return self.commit_open(poly, crs)
@@ -207,7 +208,9 @@ class ShamirHonkDriver:
     def inv_vec(self, x):
         r = self.rand(x.shape[0])
         opened = self.mul_open(x, r)
-        if bool((opened == 0).all(-1).any()):
+        with timing.blocking("honk.inv_check"):
+            zero = bool((opened == 0).all(-1).any())
+        if zero:
             raise ZeroDivisionError("cannot invert zero share")
         return self.mul_public(r, polyops.batch_invert(opened))
 

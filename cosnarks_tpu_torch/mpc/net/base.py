@@ -69,7 +69,10 @@ class Network(abc.ABC):
         """Add a message of `nbytes` to this party's counters for `peer`:
         bytes under (peer, "sent" | "recv"), messages under (peer,
         "sent_msgs" | "recv_msgs"). Safe from a party's concurrent
-        threads."""
+        threads. Bytes sent also add to the program's counter
+        `mpc.sent_bytes` while it records (`utils/timing.py`)."""
+        if sent:
+            timing.add("mpc.sent_bytes", nbytes)
         with _stats_lock:
             st = self.__dict__.setdefault("_stats", {})
             way = "sent" if sent else "recv"
